@@ -4,17 +4,25 @@
 
 Phases (any failure exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: compile the port's CUDA kernels from vello_tpu_torch/csrc;
-  3. main path: filled_mmark-30k at 1600x1600, msaa16, through
-     vello_tpu_torch.Renderer(device="cuda").render_u8; overflow 0, no
-     retry, the host's tier, every kernel launched; first-frame and warm
-     per-frame times;
-  4. each kernel against its plain PyTorch version on the frame's own
-     inputs, with times for both;
-  5. a 512x512 frame rendered on the GPU and with the port on the CPU.
+  2. build: compile the port's CUDA kernels from vello_tpu_torch/csrc (one
+     nvcc per source, all at once);
+  3. the two frame paths at full size, filled_mmark-30k at 1600x1600
+     through vello_tpu_torch.Renderer(device="cuda").render_u8, each with
+     the launch counts set to 0 just before it and read just after:
+     a. msaa16 (kernels K1 flatten, K2 touch expansion, K3 msaa coverage,
+        K4 solid composite);
+     b. area, the default antialiasing (K1, K2, K5 area coverage, K4);
+     each with overflow 0, no retry, the host's tier and one launch of each
+     of its kernels; first-frame and warm per-frame times;
+  4. each kernel against its plain PyTorch version on the inputs its path
+     gave it (K5's from the area frame, the others' from the msaa frame),
+     with times for both and the least time the card could take;
+  5. 512x512 msaa16 and area frames rendered on the GPU and with the port
+     on the CPU, within 1 u8 level.
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels. ``--profile DIR`` also writes a torch.profiler table of three
-warm frames to DIR. Imports nothing of JAX.
+the kernels, and the one before that the card. ``--profile DIR`` also
+writes a torch.profiler table of three warm frames of each path to DIR.
+Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -35,6 +43,12 @@ COMPLEXITY = 30
 BASE = (0.1, 0.1, 0.1, 1.0)
 WARM_FRAMES = 20
 
+# Published H100 SXM peaks (NVIDIA data sheet, at a 700 W limit): HBM3
+# bandwidth and f32 rate outside the tensor cores. The kernels are f32
+# scalar code, so the f32 rate is the operations bound.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
 # (wrapper, plain version, CUDA source, the TPU kernel it replaces)
 KERNELS = {
     "flatten": ("flatten_lines", "flatten_lines_plain",
@@ -49,7 +63,29 @@ KERNELS = {
     "composite_solid": ("composite_solid", "composite_solid_plain",
                         "vello_tpu_torch/csrc/composite_solid.cu",
                         "vello_tpu/ops/pallas_kernels.py:1303"),
+    "coverage_area": ("coverage_area", "coverage_area_plain",
+                      "vello_tpu_torch/csrc/coverage_area.cu",
+                      "vello_tpu/ops/pallas_kernels.py:84"),
 }
+
+# the kernels each frame path launches; each kernel is held to its plain
+# version on the inputs of the first path that launches it
+PATHS = {
+    "msaa16": ("flatten", "expand_touches", "msaa_coverage",
+               "composite_solid"),
+    "area": ("flatten", "expand_touches", "coverage_area",
+             "composite_solid"),
+}
+CHECKED_ON = {name: next(aa for aa, names in PATHS.items() if name in names)
+              for name in KERNELS}
+
+# f32 operations per unit of work, counted from each kernel's source
+# (compares, selects and integer steps count as one each)
+OPS_PER_LINE = 170           # K1: slot search, 2 cubic points, trim, DDA
+OPS_PER_TOUCH = 150          # K2: slot search, DDA step, tile clip, rules
+OPS_PER_SAMPLE_TEST = 10     # K3: per touch, pixel and sample
+OPS_PER_COMPOSITE = 18       # K4: per fragment and pixel, 4 channels
+OPS_PER_AREA_TEST = 40       # K5: per touch and pixel, one divide included
 
 
 def fail(msg: str):
@@ -70,12 +106,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def capture_kernel_inputs(kernels, frame):
-    """Run one frame with each kernel wrapper wrapped to record its
+def capture_kernel_inputs(kernels, frame, names):
+    """Run one frame with the wrappers of ``names`` wrapped to record their
     arguments; returns {name: (args, kwargs)}."""
     captured = {}
-    originals = {name: getattr(kernels, spec[0])
-                 for name, spec in KERNELS.items()}
+    originals = {name: getattr(kernels, KERNELS[name][0]) for name in names}
 
     def recorder(name):
         def wrapped(*args, **kwargs):
@@ -84,23 +119,58 @@ def capture_kernel_inputs(kernels, frame):
         return wrapped
 
     try:
-        for name, spec in KERNELS.items():
-            setattr(kernels, spec[0], recorder(name))
+        for name in names:
+            setattr(kernels, KERNELS[name][0], recorder(name))
         frame()
         torch.cuda.synchronize()
     finally:
-        for name, spec in KERNELS.items():
-            setattr(kernels, spec[0], originals[name])
-    missing = set(KERNELS) - set(captured)
+        for name in names:
+            setattr(kernels, KERNELS[name][0], originals[name])
+    missing = set(names) - set(captured)
     if missing:
         fail(f"the frame did not call {sorted(missing)}")
     return captured
 
 
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts
+               if isinstance(t, torch.Tensor))
+
+
+def bound(name, args, out):
+    """(least ms, "bytes" or "operations") for one launch on these inputs:
+    each input read once and the output written once over the HBM rate,
+    against the operations these inputs need over the f32 rate."""
+    nbytes = _nbytes(*args, out)
+    if name == "flatten":
+        spack, incl, n_lines = args[:3]
+        ops = min(int(incl[-1]), n_lines) * OPS_PER_LINE
+    elif name == "expand_touches":
+        lpack, incl, n_touches = args[:3]
+        ops = min(int(incl[-1]), n_touches) * OPS_PER_TOUCH
+    elif name == "msaa_coverage":
+        trow, starts, fidx, backdrop, rule, valid, ns = args[:7]
+        f = fidx.long()
+        cnt = (starts[f + 1] - starts[f]) * valid[f]
+        ops = int(cnt.sum()) * 256 * ns * OPS_PER_SAMPLE_TEST
+    elif name == "composite_solid":
+        cov, col, base, los, his = args
+        ops = int((his - los).clamp_min(0).sum()) * 256 * OPS_PER_COMPOSITE
+    else:
+        trow, starts, backdrop, rule, valid = args[:5]
+        cnt = (starts[1:] - starts[:-1]) * valid
+        ops = int(cnt.sum()) * 256 * OPS_PER_AREA_TEST
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def compare(name, got, ref):
     """Hold a kernel's output to its plain version's; returns the max
-    abs error. Bars: integer rows and coverage exact, coordinates rtol
-    2e-6 / atol 1e-5, composite atol 2e-5."""
+    abs error. Bars: integer rows and msaa coverage exact, coordinates
+    rtol 2e-6 / atol 1e-5, composite atol 2e-5, area coverage atol 1e-6
+    (the same op order: expected 0)."""
     got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
     if got.shape != ref.shape or not np.isfinite(got).all():
         fail(f"{name}: shape {got.shape} vs {ref.shape} or non-finite")
@@ -119,15 +189,78 @@ def compare(name, got, ref):
     elif name == "msaa_coverage":
         if not np.array_equal(got, ref):
             fail(f"msaa_coverage: coverage differs (max abs err {err})")
+    elif name == "coverage_area":
+        if err > 1e-6:
+            fail(f"coverage_area: max abs err {err} > 1e-6")
     elif not np.allclose(got, ref, rtol=0, atol=2e-5):
         fail(f"composite_solid: max abs err {err} > 2e-5")
     return err
 
 
+def run_path(aa, kernels, Renderer, RenderParams, resolve, scene, profile):
+    """Drive one frame path at full size; returns (frame thunk, launch
+    counts of its first frame)."""
+    params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing=aa)
+    caps = resolve(scene.encoding, params).capacities(params)
+    r = Renderer(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    img = r.render_u8(scene, params)
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    prof = r.last_profile
+    print(f"[{aa}] first_frame_s {first_s:.4f} tier {prof['tier']} retries "
+          f"{prof['retries']} n_live {prof['n_live']} launches {launches}")
+    want = dict(zip(prof["tier"], caps.key()))
+    if prof["retries"] != 0 or prof["tier"] != want:
+        fail(f"[{aa}] tier {prof['tier']} / retries {prof['retries']}: "
+             f"expected the host's tier {want} and no retry")
+    if img.shape != (SIZE, SIZE, 4) or img.dtype != np.uint8:
+        fail(f"[{aa}] image {img.shape} {img.dtype}")
+    if img[..., 3].min() != 255 or len(np.unique(img[::8, ::8, 0])) < 16:
+        fail(f"[{aa}] image is not an opaque, varied frame")
+    for name, n in launches.items():
+        if n != (1 if name in PATHS[aa] else 0):
+            fail(f"[{aa}] kernel {name} launched {n} times in one frame")
+    frame = r.frame_thunk()
+    _, overflow = frame()
+    if int(overflow) != 0:
+        fail(f"[{aa}] warm frame overflow {int(overflow)}")
+    times = []
+    for _ in range(WARM_FRAMES):
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"[{aa}] warm_ms_per_frame median {statistics.median(times):.3f} "
+          f"min {min(times):.3f} max {max(times):.3f} over {WARM_FRAMES} "
+          f"frames; peak_mem_gb "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        os.makedirs(profile, exist_ok=True)
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as p:
+            for _ in range(3):
+                frame()
+            torch.cuda.synchronize()
+        table = p.key_averages().table(sort_by="cuda_time_total",
+                                       row_limit=40)
+        with open(os.path.join(profile, f"frame_profile_{aa}.txt"),
+                  "w") as f:
+            f.write(f"3 warm frames, filled_mmark-30k {SIZE}^2 {aa}\n"
+                    f"{table}\n")
+        print(table[:6000])
+    return frame, launches
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
-                    help="write a torch.profiler table of 3 warm frames")
+                    help="write a torch.profiler table of 3 warm frames of "
+                         "each path")
     args = ap.parse_args()
 
     # 1. environment
@@ -145,74 +278,28 @@ def main():
           f"count {torch.cuda.device_count()}")
     torch.cuda.set_device(0)
 
-    from vello_tpu import RenderParams
-    from vello_tpu.encoding.resolve import resolve
-    from vello_tpu.scenes.test_scenes import filled_mmark
-    from vello_tpu_torch import Renderer
+    from vello_tpu_torch import Renderer, RenderParams, resolve
     from vello_tpu_torch.ops import fine, kernels
+    from vello_tpu_torch.scenes.test_scenes import filled_mmark
 
     # 2. build
     t0 = time.perf_counter()
     kernels.build(force=True)
-    print(f"build_s {time.perf_counter() - t0:.3f} (nvcc, 4 kernels)")
+    print(f"build_s {time.perf_counter() - t0:.3f} (nvcc, "
+          f"{len(kernels.SOURCES)} kernels in parallel)")
 
-    # 3. main path at full size
+    # 3. both frame paths at full size
     scene = filled_mmark(COMPLEXITY, float(SIZE))
-    params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing="msaa16")
-    caps = resolve(scene.encoding, params).capacities(params)
-    r = Renderer(device="cuda")
-    kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    img = r.render_u8(scene, params)
-    first_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
-    prof = r.last_profile
-    print(f"first_frame_s {first_s:.4f} tier {prof['tier']} retries "
-          f"{prof['retries']} n_live {prof['n_live']} launches {launches}")
-    want = dict(zip(prof["tier"], caps.key()))
-    if prof["retries"] != 0 or prof["tier"] != want:
-        fail(f"tier {prof['tier']} / retries {prof['retries']}: expected "
-             f"the host's tier {want} and no retry")
-    if img.shape != (SIZE, SIZE, 4) or img.dtype != np.uint8:
-        fail(f"image {img.shape} {img.dtype}")
-    if img[..., 3].min() != 255 or len(np.unique(img[::8, ::8, 0])) < 16:
-        fail("image is not an opaque, varied frame")
-    for name, n in launches.items():
-        if n < 1:
-            fail(f"kernel {name} was not launched by the main path")
-    frame = r.frame_thunk()
-    _, overflow = frame()
-    if int(overflow) != 0:
-        fail(f"warm frame overflow {int(overflow)}")
-    times = []
-    for _ in range(WARM_FRAMES):
-        t0 = time.perf_counter()
-        frame()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    print(f"warm_ms_per_frame median {statistics.median(times):.3f} min "
-          f"{min(times):.3f} max {max(times):.3f} over {WARM_FRAMES} frames; "
-          f"peak_mem_gb "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
+    frames, path_launches = {}, {}
+    for aa in PATHS:
+        frames[aa], path_launches[aa] = run_path(
+            aa, kernels, Renderer, RenderParams, resolve, scene, args.profile)
 
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        os.makedirs(args.profile, exist_ok=True)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as p:
-            for _ in range(3):
-                frame()
-            torch.cuda.synchronize()
-        table = p.key_averages().table(sort_by="cuda_time_total",
-                                       row_limit=40)
-        with open(os.path.join(args.profile, "frame_profile.txt"), "w") as f:
-            f.write(f"{card}\n3 warm frames, filled_mmark-30k 1600^2 "
-                    f"msaa16\n{table}\n")
-        print(table[:6000])
-
-    # 4. each kernel against its plain version, on the frame's inputs
-    captured = capture_kernel_inputs(kernels, frame)
+    # 4. each kernel against its plain version, on its path's inputs
+    captured = {}
+    for aa, names in PATHS.items():
+        mine = [n for n in names if CHECKED_ON[n] == aa]
+        captured.update(capture_kernel_inputs(kernels, frames[aa], mine))
     results = []
     for name, (wrapper, plain, source, replaces) in KERNELS.items():
         kargs, kw = captured[name]
@@ -224,22 +311,29 @@ def main():
         err = compare(name, got, ref)
         ms = cuda_ms(lambda: kfn(*kargs, **kw), 20)
         plain_ms = cuda_ms(lambda: pfn(*kargs, **kw), 3)
-        print(f"{name}: max_abs_err {err} kernel_ms {ms:.4f} "
-              f"plain_ms {plain_ms:.4f}")
+        bound_ms, bound_by = bound(name, kargs, got)
+        launches = path_launches[CHECKED_ON[name]][name]
+        print(f"{name}: max_abs_err {err} kernel_ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
+              f"launches {launches} ({CHECKED_ON[name]} frame)")
         results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "replaces": replaces, "launches": launches,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
 
-    # 5. a smaller frame: GPU kernels against the port's CPU plain path
+    # 5. smaller frames: GPU kernels against the port's CPU plain path
     small = filled_mmark(4, 512.0)
-    sp = RenderParams(512, 512, base_color=BASE, antialiasing="msaa16")
-    gpu_img = Renderer(device="cuda").render_u8(small, sp)
-    cpu_img = Renderer(device="cpu").render_u8(small, sp)
-    diff = np.abs(gpu_img.astype(np.int16) - cpu_img.astype(np.int16))
-    print(f"image_check 512x512: max diff {int(diff.max())}, identical "
-          f"{float((diff == 0).mean()):.6f}")
-    if diff.max() > 1:
-        fail(f"GPU and CPU images differ by {int(diff.max())} levels")
+    for aa in PATHS:
+        sp = RenderParams(512, 512, base_color=BASE, antialiasing=aa)
+        gpu_img = Renderer(device="cuda").render_u8(small, sp)
+        cpu_img = Renderer(device="cpu").render_u8(small, sp)
+        diff = np.abs(gpu_img.astype(np.int16) - cpu_img.astype(np.int16))
+        print(f"image_check 512x512 {aa}: max diff {int(diff.max())}, "
+              f"identical {float((diff == 0).mean()):.6f}")
+        if diff.max() > 1:
+            fail(f"{aa}: GPU and CPU images differ by {int(diff.max())} "
+                 f"levels")
 
     print(card)
     print(json.dumps({"kernels": results}))

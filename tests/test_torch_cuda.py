@@ -7,10 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from vello_tpu import RenderParams
-from vello_tpu.encoding.resolve import resolve
-from vello_tpu.scenes.test_scenes import filled_mmark
-from vello_tpu_torch import Renderer
+from vello_tpu_torch import Renderer, RenderParams, resolve
+from vello_tpu_torch.scenes.test_scenes import filled_mmark
 from vello_tpu_torch.ops import fine, kernels
 
 pytestmark = pytest.mark.cuda
@@ -23,14 +21,17 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("aa", ["msaa8", "msaa16"])
+@pytest.mark.parametrize("aa", ["msaa8", "msaa16", "area", "centers"])
 def test_gpu_frame_equals_cpu_frame(cuda, aa):
     params = RenderParams(256, 256, base_color=(0.1, 0.1, 0.1, 1.0),
                           antialiasing=aa)
     rs = resolve(filled_mmark(2, 256.0).encoding, params)
     kernels.reset_launches()
     gpu = Renderer(device=cuda).render_resolved(rs, params, out="rgba8")
-    assert all(n == 1 for n in kernels.launches.values()), kernels.launches
+    counts = dict(kernels.launches)
+    unused = "coverage_area" if aa.startswith("msaa") else "msaa_coverage"
+    assert counts.pop(unused) == 0, kernels.launches
+    assert all(n == 1 for n in counts.values()), kernels.launches
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     np.testing.assert_array_equal(gpu, cpu)
 
@@ -68,3 +69,25 @@ def test_msaa_and_composite_kernels_match_plain(cuda):
         kernels.composite_solid(cov, col, base, los, his),
         fine.composite_solid_plain(cov, col, base, los, his),
         rtol=0, atol=2e-5)
+
+
+def test_area_kernel_matches_plain(cuda):
+    """K5 against its plain version: the same f32 op order and the same
+    order of additions, so the bar is equality."""
+    rng = np.random.default_rng(1)
+    t, f = 6000, 1500
+    fid = np.sort(rng.integers(0, f, t))
+    trow = np.zeros((t, 8), np.float32)
+    trow[:, 0:4] = rng.uniform(-1, 17, (t, 4))
+    trow[::7, 3] = trow[::7, 1]                  # horizontal (dy == 0)
+    trow[3::11, 2] = trow[3::11, 0]              # vertical (dx == 0)
+    trow[:, 4] = np.where(rng.uniform(size=t) < 0.3,
+                          rng.uniform(0, 16, t), 1e9)
+    starts = np.searchsorted(fid, np.arange(f + 1)).astype(np.int32)
+    args = [torch.from_numpy(v).to(cuda) for v in (
+        trow, starts, rng.integers(-2, 3, f).astype(np.float32),
+        rng.integers(0, 2, f).astype(np.int32), rng.uniform(size=f) < 0.9)]
+    for centers in (False, True):
+        got = kernels.coverage_area(*args, centers)
+        ref = fine.coverage_area_plain(*args, centers)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)

@@ -1,6 +1,8 @@
 """The port's fused geometry (K1 flatten, K2 touch expansion and the
 PyTorch around them) against the JAX package's Pallas kernels in interpret
-mode, on the same packed buffers.
+mode. Each package builds, resolves and packs the scene itself (the
+host copies are equal, test_torch_host.py); the kernels of both then run on
+buffers of equal content.
 
 Bars: line and touch totals, tcount, live, crossing, orientation, ftile and
 backdrop exactly equal; coordinates within rtol 2e-6 / atol 1e-5 (the bar
@@ -13,51 +15,45 @@ import torch
 
 import jax.numpy as jnp
 
-from vello_tpu import Affine, Fill, RenderParams, Scene
-from vello_tpu.encoding.config import TILE_H, TILE_W
-from vello_tpu.encoding.resolve import resolve
-from vello_tpu.kurbo import circle_path, star_path
+import vello_tpu
+import vello_tpu_torch
+from test_torch_pipeline import edge_scene, mmark
+from vello_tpu.encoding.resolve import resolve as jax_resolve
 from vello_tpu.models.renderer import pack_buffers as jax_pack_buffers
 from vello_tpu.ops import flatten as jax_flatten
 from vello_tpu.ops import tiling as jax_tiling
-from vello_tpu.peniko import palette
-from vello_tpu.scenes.test_scenes import filled_mmark
+from vello_tpu_torch import RenderParams, resolve
+from vello_tpu_torch.encoding.config import TILE_H, TILE_W
 from vello_tpu_torch.models.renderer import pack_buffers, to_torch
 from vello_tpu_torch.ops import flatten as flatten_ops
 from vello_tpu_torch.ops import tiling
 
 SIZE = 128
 
-
-def edge_scene():
-    """test_fused_touches.py's scene: its off-screen circle crosses x = 0,
-    so the left-edge verticals are live (has_edge True)."""
-    scene = Scene()
-    scene.fill(Fill.NON_ZERO, Affine.identity(), palette.RED, None,
-               circle_path(40, 40, 30))
-    scene.fill(Fill.EVEN_ODD, Affine.translate(20, 60), palette.BLUE, None,
-               star_path(30, 30, 5, 25, 10))
-    scene.fill(Fill.NON_ZERO, Affine.identity(), palette.GREEN, None,
-               circle_path(-20, 64, 30))
-    return scene
-
-
-SCENES = {"edge_circle": edge_scene,
-          "mmark": lambda: filled_mmark(1, float(SIZE))}
+# scene builders given the package to build through; edge_circle is
+# test_fused_touches.py's scene: its off-screen circle crosses x = 0, so
+# the left-edge verticals are live (has_edge True)
+SCENES = {"edge_circle": edge_scene, "mmark": mmark}
 
 
 @pytest.fixture(scope="module", params=sorted(SCENES))
 def frame(request):
     params = RenderParams(SIZE, SIZE, base_color=(0, 0, 0, 1),
                           antialiasing="msaa16")
-    rs = resolve(SCENES[request.param]().encoding, params)
+    jparams = vello_tpu.RenderParams(SIZE, SIZE, base_color=(0, 0, 0, 1),
+                                     antialiasing="msaa16")
+    rs = resolve(SCENES[request.param](vello_tpu_torch).encoding, params)
+    jrs = jax_resolve(SCENES[request.param](vello_tpu).encoding, jparams)
     caps = rs.capacities(params)
+    assert caps.key() == jrs.capacities(jparams).key()
     assert caps.n_lines % 1024 == 0 and caps.n_touches % 1024 == 0
     bufs = pack_buffers(rs, caps, params, slim=True, paint8=True)
+    jbufs = jax_pack_buffers(jrs, caps, jparams, slim=True, paint8=True)
     wt = (SIZE + TILE_W - 1) // TILE_W + 1
     ht = (SIZE + TILE_H - 1) // TILE_H
-    fr = {"name": request.param, "rs": rs, "caps": caps, "bufs": bufs,
-          "wt": wt, "ht": ht, "params": params}
+    fr = {"name": request.param, "rs": rs, "jrs": jrs, "caps": caps,
+          "bufs": bufs, "jbufs": jbufs, "wt": wt, "ht": ht,
+          "params": params, "jparams": jparams}
     fr["jax_flatten"], fr["torch_flatten"] = _flatten_both(fr)
     return fr
 
@@ -65,9 +61,11 @@ def frame(request):
 @pytest.mark.parametrize("slim,paint8", [(False, False), (True, False),
                                          (True, True)])
 def test_pack_buffers_matches_jax(frame, slim, paint8):
-    rs, caps, params = frame["rs"], frame["caps"], frame["params"]
-    ours = pack_buffers(rs, caps, params, slim=slim, paint8=paint8)
-    ref = jax_pack_buffers(rs, caps, params, slim=slim, paint8=paint8)
+    caps = frame["caps"]
+    ours = pack_buffers(frame["rs"], caps, frame["params"], slim=slim,
+                        paint8=paint8)
+    ref = jax_pack_buffers(frame["jrs"], caps, frame["jparams"], slim=slim,
+                           paint8=paint8)
     assert sorted(ours) == sorted(ref)
     for k in ref:
         a, b = np.asarray(ours[k]), np.asarray(ref[k])
@@ -81,12 +79,12 @@ def test_pack_buffers_matches_jax(frame, slim, paint8):
 def _flatten_both(frame):
     caps, bnp, rs = frame["caps"], frame["bufs"], frame["rs"]
     width, height = float(frame["wt"] * TILE_W), float(SIZE)
-    jb = {k: jnp.asarray(v) for k, v in bnp.items()}
+    jb = {k: jnp.asarray(v) for k, v in frame["jbufs"].items()}
     jr = jax_tiling.tile_alloc(jb["path_rect"], frame["wt"], frame["ht"])
     jff = jax_flatten.flatten_fused(
         jb["seg_pts"], jb["seg_kind"], jb["seg_path"], jb["n_segs"],
         caps.n_lines, width, height, jax_tiling.rect_pack(jr),
-        interpret=True, max_lines=rs.max_lines)
+        interpret=True, max_lines=frame["jrs"].max_lines)
     tb = to_torch(bnp, "cpu")
     tr = tiling.tile_alloc(tb["path_rect"], frame["wt"], frame["ht"])
     for k in ("tx0", "ty0", "tx1", "ty1", "stride", "base", "areas"):

@@ -1,7 +1,9 @@
-"""vello_tpu_torch imports no JAX, and its kernel wrappers route CPU
-tensors to their plain PyTorch versions without launching anything."""
+"""vello_tpu_torch imports neither JAX nor the JAX package, and its kernel
+wrappers route CPU tensors to their plain PyTorch versions without
+launching anything."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -14,28 +16,56 @@ from vello_tpu_torch.ops import fine, kernels
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
+import importlib
+import pkgutil
 import sys
 import vello_tpu_torch
-import vello_tpu_torch.models.renderer
-import vello_tpu_torch.ops.fine
-import vello_tpu_torch.ops.flatten
-import vello_tpu_torch.ops.kernels
-import vello_tpu_torch.ops.segmented
-import vello_tpu_torch.ops.tiling
-import vello_tpu_torch.pipeline.render
-from vello_tpu.scenes.test_scenes import filled_mmark
-loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("JAX_MODULES", len(loaded), loaded[:5])
+names = [m.name for m in pkgutil.walk_packages(vello_tpu_torch.__path__,
+                                               "vello_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from vello_tpu_torch.scenes.test_scenes import filled_mmark
+filled_mmark(1, 64.0)
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "vello_tpu"))
+print("MODULES", len(names), "FOREIGN", len(loaded), loaded[:5])
 """
 
 
-def test_package_imports_no_jax():
+def test_package_imports_no_jax_and_no_vello_tpu():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "JAX_MODULES 0 []" in out.stdout, out.stdout
+    assert "FOREIGN 0 []" in out.stdout, out.stdout
+    n_modules = int(out.stdout.split()[1])
+    assert n_modules >= 20, out.stdout     # the host copy and the device side
+
+
+_FOREIGN_IMPORT = re.compile(
+    r"^\s*(from\s+vello_tpu(\.\S+)?\s+import|import\s+vello_tpu(\.|\s|$))",
+    re.M)
+
+
+def test_sources_do_not_import_vello_tpu():
+    """No source of the port, and not chip_smoke.py, names the JAX package
+    in an import statement (``vello_tpu_torch`` itself is fine)."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "vello_tpu_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 20
+    offenders = []
+    for path in paths:
+        with open(path) as f:
+            for m in _FOREIGN_IMPORT.finditer(f.read()):
+                offenders.append(f"{os.path.relpath(path, REPO)}: "
+                                 f"{m.group(0).strip()}")
+    assert not offenders, offenders
+    assert _FOREIGN_IMPORT.search("from vello_tpu.kurbo import Affine")
+    assert _FOREIGN_IMPORT.search("    import vello_tpu")
+    assert not _FOREIGN_IMPORT.search("from vello_tpu_torch import Scene")
+    assert not _FOREIGN_IMPORT.search("import vello_tpu_torch.ops")
 
 
 def _stream(rng, t=64, f=12):
@@ -75,6 +105,12 @@ def test_cpu_tensors_take_plain_versions():
     pay = kernels.expand_touches(lp, torch.ones(1024, dtype=torch.int32)
                                  .cumsum(0, dtype=torch.int32), 2048)
     assert pay.shape == (8, 2048)
+
+    area_args = args[:2] + args[3:]
+    for centers in (False, True):
+        cov = kernels.coverage_area(*area_args, centers)
+        assert torch.equal(cov, fine.coverage_area_plain(*area_args,
+                                                         centers))
     assert all(v == 0 for v in kernels.launches.values()), kernels.launches
 
 

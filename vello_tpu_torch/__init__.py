@@ -1,15 +1,27 @@
-"""vello_tpu_torch — the vello_tpu device pipeline in PyTorch, with
-hand-written CUDA kernels for an NVIDIA Hopper GPU.
+"""vello_tpu_torch — the vello_tpu renderer in PyTorch, with hand-written
+CUDA kernels for an NVIDIA Hopper GPU.
 
-The host side (Scene, encoding, resolver, estimator, oracle) is shared
-with ``vello_tpu`` and imported from there; both packages render the same
-``ResolvedScene``. This package never imports JAX.
+The host side (Scene, encoding, resolver, capacity estimator) is this
+package's own copy of ``vello_tpu``'s numpy/C++ host modules, with the same
+module names; the device frame is PyTorch plus the kernels in ``csrc/``.
+This package imports neither JAX nor ``vello_tpu``.
 
-Supported so far: the msaa8/msaa16 solid-fill frame without layers or
-device strokes. A CPU tensor runs each kernel's plain PyTorch version; a
-CUDA tensor runs the kernel (built with ``nvcc`` at first use).
+Supported so far: solid fills without layers or device strokes, with
+area (the default), centers, msaa8 or msaa16 antialiasing. A CPU tensor
+runs each kernel's plain PyTorch version; a CUDA tensor runs the kernel
+(built with ``nvcc`` at first use).
 """
 
+from . import kurbo, peniko
+from .encoding.config import RenderParams
+from .encoding.resolve import ResolvedScene, resolve
+from .kurbo import Affine, BezPath, Rect, Stroke
 from .models.renderer import Renderer, pack_buffers, to_torch
+from .peniko import BlendMode, Color, Compose, Extend, Fill, Gradient, \
+    Image, Mix, palette
+from .scene import Scene
 
-__all__ = ["Renderer", "pack_buffers", "to_torch"]
+__all__ = ["Affine", "BezPath", "BlendMode", "Color", "Compose", "Extend",
+           "Fill", "Gradient", "Image", "Mix", "Rect", "RenderParams",
+           "Renderer", "ResolvedScene", "Scene", "Stroke", "kurbo",
+           "pack_buffers", "palette", "peniko", "resolve", "to_torch"]

@@ -15,11 +15,10 @@ from dataclasses import replace
 import numpy as np
 import torch
 
-from vello_tpu.encoding.config import Capacities, RenderParams, next_size
-from vello_tpu.encoding.resolve import ResolvedScene, resolve
-from vello_tpu.scene import Scene
-
+from ..encoding.config import Capacities, RenderParams, next_size
+from ..encoding.resolve import ResolvedScene, resolve
 from ..pipeline.render import PipelineStatic, get_pipeline
+from ..scene import Scene
 
 # Attribute of a ResolvedScene under which the port caches its device
 # tensors (the JAX Renderer caches jax arrays under ``_device_bufs``).
@@ -178,7 +177,11 @@ class Renderer:
                      next_size(min(caps.n_path_tiles,
                                    rs.est_live + 64 + rs.n_paths // 16),
                                align=128))
-        has_eo = bool((rs.fill_rule == 1).any())
+        # even-odd specialization keys only the msaa resolve (as in the
+        # JAX package, whose PipelineStatic is then the same)
+        has_eo = True
+        if params.antialiasing in ("msaa8", "msaa16"):
+            has_eo = bool((rs.fill_rule == 1).any())
         has_edge = bool(rs.has_left_edge)
         overflow = 0
         for attempt in range(self.max_retries + 1):

@@ -1,16 +1,17 @@
 """Fine rasterization, plain PyTorch (counterpart of
-``vello_tpu/ops/fine_xla.py``, msaa + solid composite only).
+``vello_tpu/ops/fine_xla.py``: area and msaa coverage, solid composite).
 
-These are the plain versions of kernels K3 (sample-mask msaa coverage)
-and K4 (ordered src-over of solid colors); ``ops/kernels.py`` runs them for
-tensors on the CPU and holds the CUDA kernels against them on the GPU.
+These are the plain versions of kernels K3 (sample-mask msaa coverage),
+K4 (ordered src-over of solid colors) and K5 (exact-area coverage);
+``ops/kernels.py`` runs them for tensors on the CPU and holds the CUDA
+kernels against them on the GPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from vello_tpu.encoding.config import TILE_H, TILE_W
+from ..encoding.config import TILE_H, TILE_W
 
 NPX = TILE_H * TILE_W  # 256 pixels per tile
 
@@ -48,6 +49,85 @@ def apply_fill_rule(winding, rule):
     nz = torch.clamp_max(torch.abs(winding), 1.0)
     eo = torch.abs(winding - 2.0 * torch.round(0.5 * winding))
     return torch.where(rule == 1, eo, nz)
+
+
+def _pixel_iota(device):
+    """(1, 256) tile-local pixel corner coords (px, py)."""
+    lin = torch.arange(NPX, dtype=torch.float32, device=device)[None]
+    return torch.remainder(lin, TILE_W), torch.floor(lin / TILE_W)
+
+
+def coverage_delta(seg, y_edge):
+    """Per-pixel winding contribution of tile-local segments: the exact-area
+    term of ``fine.wgsl`` ``fill_path`` plus the left-edge y_edge term.
+    seg (N, 4) tile-local (x0, y0, x1, y1) in original orientation, y_edge
+    (N,) (1e9 if none) -> (N, 256) f32.
+
+    The f32 op order is that of the JAX package's Pallas kernel
+    (``pallas_kernels._cov_kernel``), which kernel K5 keeps too. The
+    ``dyc != 0`` test selects rather than multiplies: ``a`` can be inf
+    where ``dyc`` is 0."""
+    px, py = _pixel_iota(seg.device)
+    p0x, p0y, p1x, p1y = (seg[:, k:k + 1] for k in range(4))
+    dx = p1x - p0x
+    dy = p1y - p0y
+    y = p0y - py
+    y0 = torch.clamp(y, 0.0, 1.0)
+    y1 = torch.clamp(y + dy, 0.0, 1.0)
+    dyc = y0 - y1
+    inv_dy = 1.0 / torch.where(dy == 0.0, torch.ones_like(dy), dy)
+    t0 = (y0 - y) * inv_dy
+    t1 = (y1 - y) * inv_dy
+    startx = p0x - px
+    x0 = startx + t0 * dx
+    x1 = startx + t1 * dx
+    xmin = torch.clamp_max(torch.minimum(x0, x1), 1.0) - 1e-6
+    xmax = torch.maximum(x0, x1)
+    b = torch.clamp_max(xmax, 1.0)
+    c = torch.clamp_min(b, 0.0)
+    d = torch.clamp_min(xmin, 0.0)
+    a = (b + 0.5 * (d * d - c * c) - xmin) / (xmax - xmin)
+    area = torch.where(dyc != 0.0, a * dyc, torch.zeros((), device=seg.device))
+    ye = y_edge[:, None]
+    return area + torch.sign(dx) * torch.clamp(py - ye + 1.0, 0.0, 1.0)
+
+
+def coverage_area_plain(trow, starts, backdrop, rule, valid, centers: bool):
+    """Plain version of kernel K5: the area coverage of every fragment.
+
+    trow (T, 8) f32 touches sorted by fragment [x0, y0, x1, y1, y_edge,
+    ..]; fragment f owns touches [starts[f], starts[f+1]). Per pixel: the
+    ``coverage_delta`` rows of those touches summed in stream order, plus
+    backdrop[f], then the fill rule (rule[f]: 0 nonzero, 1 even-odd), then
+    with ``centers`` the threshold ``>= 0.5 -> 1 else 0``. Invalid
+    fragments give 0. Returns (F, 256) f32.
+
+    The JAX package differences a running cumsum over the whole stream
+    instead; this direct sum is what that difference approximates."""
+    dev = trow.device
+    f_all = backdrop.shape[0]
+    out = torch.zeros((f_all, NPX), dtype=torch.float32, device=dev)
+    for f0 in range(0, f_all, _ROWS_PER_CHUNK):
+        f1 = min(f0 + _ROWS_PER_CHUNK, f_all)
+        lo = starts[f0:f1].long()
+        cnt = starts[f0 + 1:f1 + 1].long() - lo
+        t_lo, t_hi = int(starts[f0]), int(starts[f1])
+        sums = torch.zeros((f1 - f0, NPX), dtype=torch.float32, device=dev)
+        if t_hi > t_lo:
+            t = trow[t_lo:t_hi]
+            delta = coverage_delta(t[:, :4], t[:, 4])
+            # k-th touch of every fragment at once: the same sequential
+            # order of additions as the kernel's per-thread loop
+            for k in range(int(cnt.max())):
+                row = (lo - t_lo + k).clamp_max(t_hi - t_lo - 1)
+                sums = sums + torch.where((k < cnt)[:, None], delta[row],
+                                          0.0)
+        cov = apply_fill_rule(backdrop[f0:f1, None] + sums,
+                              rule[f0:f1, None])
+        if centers:
+            cov = torch.where(cov >= 0.5, 1.0, 0.0)
+        out[f0:f1] = torch.where(valid[f0:f1, None], cov, 0.0)
+    return out
 
 
 def coverage_delta_msaa(seg, y_edge, ns: int):

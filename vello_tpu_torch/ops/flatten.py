@@ -12,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from vello_tpu.encoding.config import FLATTEN_TOL, MAX_LINES_PER_SEG
-
+from ..encoding.config import FLATTEN_TOL, MAX_LINES_PER_SEG
 from . import kernels
 from .kernels import EDGE_EPS
 

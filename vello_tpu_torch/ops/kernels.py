@@ -1,6 +1,5 @@
-"""The four hand-written CUDA kernels of the msaa solid-fill frame, each
-beside its plain PyTorch version (counterpart of
-``vello_tpu/ops/pallas_kernels.py``).
+"""The hand-written CUDA kernels of the solid-fill frame, each beside its
+plain PyTorch version (counterpart of ``vello_tpu/ops/pallas_kernels.py``).
 
 - K1 flatten: ``flatten_lines`` (``csrc/flatten.cu``), plain
   ``flatten_lines_plain``;
@@ -9,7 +8,9 @@ beside its plain PyTorch version (counterpart of
 - K3 msaa coverage: ``msaa_coverage`` (``csrc/msaa_coverage.cu``), plain
   ``fine.msaa_coverage_plain``;
 - K4 solid composite: ``composite_solid`` (``csrc/composite_solid.cu``),
-  plain ``fine.composite_solid_plain``.
+  plain ``fine.composite_solid_plain``;
+- K5 area coverage: ``coverage_area`` (``csrc/coverage_area.cu``), plain
+  ``fine.coverage_area_plain``.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel on the current stream or raises; there is no other
@@ -28,22 +29,21 @@ import subprocess
 
 import torch
 
-from vello_tpu.encoding.config import TILE_H, TILE_W
-
-from .fine import NPX, composite_solid_plain, msaa_coverage_plain
+from ..encoding.config import TILE_H, TILE_W
+from .fine import (NPX, composite_solid_plain, coverage_area_plain,
+                   msaa_coverage_plain)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 LIB = os.path.join(BUILD, "libvello_kernels.so")
 SOURCES = ("flatten.cu", "expand_touches.cu", "msaa_coverage.cu",
-           "composite_solid.cu")
+           "composite_solid.cu", "coverage_area.cu")
 # --fmad=false: no a*b+c contraction, so the geometry kernels round every
 # op as the plain versions and the JAX package do (their floors must agree
 # with the host estimator); IEEE division and sqrt are nvcc's defaults.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "--fmad=false")
+              "-std=c++17", "-Xcompiler", "-fPIC", "--fmad=false")
 
 # Keeps clamped verticals strictly inside the viewport (the JAX package's
 # _EDGE_EPS: far below the u8 quantum, exact next to widths up to 8192).
@@ -93,7 +93,7 @@ def _dda_from_q(qx0, qy0, qx1, qy1) -> dict:
 
 
 launches = {"flatten": 0, "expand_touches": 0, "msaa_coverage": 0,
-            "composite_solid": 0}
+            "composite_solid": 0, "coverage_area": 0}
 
 _lib = None
 
@@ -115,20 +115,41 @@ def _nvcc() -> str:
 
 def build(force: bool = False) -> str:
     """Compile csrc/*.cu into build/libvello_kernels.so (skipped when the
-    library is newer than every source and header). Raises on a failed
-    build."""
+    library is newer than every source and header): one nvcc per source,
+    all started together, then one link. Raises on a failed build."""
     srcs = [os.path.join(CSRC, s) for s in SOURCES]
     deps = srcs + [os.path.join(CSRC, "common.cuh")]
     if (not force and os.path.exists(LIB) and os.path.getmtime(LIB)
             >= max(os.path.getmtime(s) for s in deps)):
         return LIB
     os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
+    for src in srcs:
+        obj = os.path.join(BUILD, f"{os.path.basename(src)}.{tag}.o")
+        jobs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for obj, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{obj}: nvcc failed ({proc.returncode}):\n"
+                          f"{out}\n{err}")
+    tmp = f"{LIB}.{tag}"
+    if not errors:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+             *(obj for obj, _ in jobs)], capture_output=True, text=True)
+        if proc.returncode != 0:
+            errors.append(f"link failed ({proc.returncode}):\n"
+                          f"{proc.stdout}\n{proc.stderr}")
+    for obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if errors:
+        raise RuntimeError("\n".join(errors))
     os.replace(tmp, LIB)
     return LIB
 
@@ -143,6 +164,7 @@ def _load():
             "vt_expand_touches": [P, P, I, P, I, P],
             "vt_msaa_coverage": [P, P, P, P, P, P, I, I, I, P, P],
             "vt_composite_solid": [P, P, P, P, P, I, P, P],
+            "vt_coverage_area": [P, P, P, P, P, I, I, P, P],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -474,4 +496,29 @@ def composite_solid(cov, col, base_premul, los, his):
     if g:
         _launch("composite_solid", _load().vt_composite_solid, cov, col,
                 base_premul, los, his, g, out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K5: area coverage (replaces coverage_cumsum_pallas / _cov_kernel, and the
+# cumsum differencing, fill rule and centers threshold around it)
+
+def coverage_area(trow, starts, backdrop, rule, valid, centers: bool):
+    """Area coverage rows (F, 256) f32 of every fragment (see
+    ``fine.coverage_area_plain``). trow (T, 8) f32 fragment-sorted
+    touches; starts (F+1,) i32; backdrop (F,) f32; rule (F,) i32; valid
+    (F,) bool."""
+    if _on_cpu(trow, starts, backdrop, rule, valid):
+        return coverage_area_plain(trow, starts, backdrop, rule, valid,
+                                   centers)
+    f = backdrop.shape[0]
+    _check(trow, "trow", torch.float32, (trow.shape[0], 8))
+    _check(starts, "starts", torch.int32, (f + 1,))
+    _check(backdrop, "backdrop", torch.float32, (f,))
+    _check(rule, "rule", torch.int32, (f,))
+    _check(valid, "valid", torch.bool, (f,))
+    out = torch.empty((f, NPX), dtype=torch.float32, device=trow.device)
+    if f:
+        _launch("coverage_area", _load().vt_coverage_area, trow, starts,
+                backdrop, rule, valid, f, int(centers), out)
     return out

@@ -9,8 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from vello_tpu.encoding.config import TILE_H, TILE_W
-
+from ..encoding.config import TILE_H, TILE_W
 from . import kernels
 from .flatten import EDGE_EPS, expand_by_counts
 from .kernels import _dda_from_q

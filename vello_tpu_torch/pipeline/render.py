@@ -1,12 +1,13 @@
 """The end-to-end render pipeline for one frame on one device (counterpart
-of ``vello_tpu/pipeline/render.py``: the fused-geometry, msaa, solid-paint
-branch).
+of ``vello_tpu/pipeline/render.py``: the fused-geometry, solid-paint
+branch, with area, centers or msaa coverage).
 
 Stage order:
   tile alloc -> flatten (K1) -> touch expansion (K2) -> coarse sort of
   touches by flat tile -> segment starts, backdrop sums and row prefix ->
-  live cull and (gtile, path) sort -> msaa coverage of the live sorted
-  fragments (K3) -> occlusion walk starts -> solid composite (K4) -> image.
+  [area/centers: area coverage of every fragment (K5)] -> live cull and
+  (gtile, path) sort -> [msaa: msaa coverage of the live sorted fragments
+  (K3)] -> occlusion walk starts -> solid composite (K4) -> image.
 
 Everything between the kernels is library PyTorch (sort, searchsorted,
 cumsum, cummax, index). Shapes are static per capacity tier and nothing
@@ -21,8 +22,7 @@ from typing import Tuple
 
 import torch
 
-from vello_tpu.encoding.config import TILE_H, TILE_W, Capacities
-
+from ..encoding.config import TILE_H, TILE_W, Capacities
 from ..ops import fine, kernels, tiling
 from ..ops import flatten as flatten_ops
 from ..ops.segmented import segment_starts, segment_sum_from_starts
@@ -36,7 +36,7 @@ class PipelineStatic:
     width: int
     height: int
     kinds_present: Tuple[int, ...]
-    aa: str = "msaa16"
+    aa: str = "area"          # "area" | "centers" | "msaa8" | "msaa16"
     n_live: int = 0           # live-fragment cap after culling (0 = none)
     has_evenodd: bool = True  # any even-odd fill rule in the scene
     lowp: bool = False
@@ -55,11 +55,8 @@ class PipelineStatic:
 
 def check_supported(static: PipelineStatic) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
-    if static.aa not in ("msaa8", "msaa16"):
-        raise NotImplementedError(
-            f"antialiasing={static.aa!r}: area/centers coverage needs "
-            "kernel K5 (coverage_cumsum), not ported yet (ROADMAP item 6); "
-            "use msaa8/msaa16")
+    if static.aa not in ("area", "centers", "msaa8", "msaa16"):
+        raise ValueError(f"unknown antialiasing {static.aa!r}")
     if any(k != 0 for k in static.kinds_present):
         raise NotImplementedError(
             "non-solid paints need kernel K6 (fine_composite_solid) and the "
@@ -129,15 +126,27 @@ def prepare_fragments(bufs: dict, static: PipelineStatic) -> dict:
     cbd = torch.cumsum(bd_delta, 0)
     backdrop = cbd - cbd[row_start] + bd_delta[row_start]
 
-    # live cull: a fragment can cover pixels only if it has touches or a
-    # visible backdrop fill; culled fragments sort past the live cap
+    msaa = static.aa in ("msaa8", "msaa16")
+    if not msaa:
+        # exact-area coverage of every fragment, fill rule and centers
+        # threshold applied, invalid fragments 0
+        coverage = kernels.coverage_area(trow, starts, backdrop, rule, tvalid,
+                                         static.aa == "centers")
+
+    # live cull; culled fragments sort past the live cap
     n_loc = WT * HT
     owned = tvalid & (tx < WT) & (ty >= 0) & (ty < HT)
     overflow_live = torch.zeros((), dtype=torch.int32, device=dev)
     if static.n_live:
-        has_t = starts[1:] > starts[:-1]
-        cov_empty = fine.apply_fill_rule(backdrop, rule)
-        owned = owned & (has_t | (cov_empty > 1.0 / 512.0))
+        if msaa:
+            # a fragment can cover pixels only if it has touches or a
+            # visible backdrop fill
+            has_t = starts[1:] > starts[:-1]
+            cov_empty = fine.apply_fill_rule(backdrop, rule)
+            live = has_t | (cov_empty > 1.0 / 512.0)
+        else:
+            live = torch.amax(coverage, dim=1) > 1.0 / 512.0
+        owned = owned & live
         overflow_live = 16 * (owned.sum() > static.n_live).to(torch.int32)
     gtile = torch.where(owned, ty * WT + tx, n_loc)
 
@@ -149,11 +158,14 @@ def prepare_fragments(bufs: dict, static: PipelineStatic) -> dict:
         order = order[:static.n_live]
     g_s = gtile[order]
     tpath_s = tp[order]
-    fidx_s = order.to(torch.int32)
 
-    ns = 8 if static.aa == "msaa8" else 16
-    coverage_s = kernels.msaa_coverage(trow, starts, fidx_s, backdrop, rule,
-                                       tvalid, ns, static.has_evenodd)
+    if msaa:
+        ns = 8 if static.aa == "msaa8" else 16
+        coverage_s = kernels.msaa_coverage(trow, starts, order.to(torch.int32),
+                                           backdrop, rule, tvalid, ns,
+                                           static.has_evenodd)
+    else:
+        coverage_s = coverage[order]
     overflow = (geom_overflow + 4 * touches["overflow"]
                 + 8 * overflow_tiles + overflow_live)
     return {
