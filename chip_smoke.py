@@ -6,22 +6,31 @@ Phases (any failure exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: compile the port's CUDA kernels from vello_tpu_torch/csrc (one
      nvcc per source, all at once);
-  3. the two frame paths at full size, filled_mmark-30k at 1600x1600
-     through vello_tpu_torch.Renderer(device="cuda").render_u8, each with
-     the launch counts set to 0 just before it and read just after:
-     a. msaa16 (kernels K1 flatten, K2 touch expansion, K3 msaa coverage,
-        K4 solid composite);
-     b. area, the default antialiasing (K1, K2, K5 area coverage, K4);
+  3. the four frame paths at full size, 1600x1600 through
+     vello_tpu_torch.Renderer(device="cuda").render_u8, each with the
+     launch counts set to 0 just before it and read just after:
+     a. msaa16: filled_mmark-30k (kernels K1 flatten, K2 touch expansion,
+        K3 msaa coverage, K4 solid composite);
+     b. area, the default antialiasing: filled_mmark-30k (K1, K2, K5 area
+        coverage, K4);
+     c. gradient_image: mixed_paint_mmark-30k in msaa16, 20% of its fills
+        gradients and bilinear images (K1, K2, K3, the paint evaluation,
+        K6 src composite);
+     d. stroked: mmark-30k in msaa16, device strokes (K1 with its stroke
+        rows, K2, K3, K4);
      each with overflow 0, no retry, the host's tier and one launch of each
-     of its kernels; first-frame and warm per-frame times;
-  4. each kernel against its plain PyTorch version on the inputs its path
-     gave it (K5's from the area frame, the others' from the msaa frame),
-     with times for both and the least time the card could take;
-  5. 512x512 msaa16 and area frames rendered on the GPU and with the port
-     on the CPU, within 1 u8 level.
+     of its kernels; first-frame and warm per-frame times, peak memory;
+  4. each kernel against its plain PyTorch version on the inputs of the
+     path named for it in KERNELS (K1 twice: on the fill rows of the msaa16
+     frame and on the stroke rows of the stroked frame), with times for
+     both and the least time the card could take; the paint evaluation's
+     time on the gradient frame's inputs;
+  5. 512x512 frames of all four paths' scenes rendered on the GPU and with
+     the port on the CPU, within 1 u8 level.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels, and the one before that the card. ``--profile DIR`` also
-writes a torch.profiler table of three warm frames of each path to DIR.
+writes a torch.profiler table of three warm frames of each path to DIR and
+prints each path's device time per frame.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -49,43 +58,67 @@ WARM_FRAMES = 20
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# (wrapper, plain version, CUDA source, the TPU kernel it replaces)
+# entry of the kernels line -> (launch counter, wrapper, plain version,
+# CUDA source, the TPU kernel it replaces, the path whose inputs it is
+# held and timed on)
 KERNELS = {
-    "flatten": ("flatten_lines", "flatten_lines_plain",
+    "flatten": ("flatten", "flatten_lines", "flatten_lines_plain",
                 "vello_tpu_torch/csrc/flatten.cu",
-                "vello_tpu/ops/pallas_kernels.py:711"),
-    "expand_touches": ("expand_touches", "expand_touches_plain",
+                "vello_tpu/ops/pallas_kernels.py:711", "msaa16"),
+    "flatten_stroke_rows": ("flatten", "flatten_lines",
+                            "flatten_lines_plain",
+                            "vello_tpu_torch/csrc/flatten.cu",
+                            "vello_tpu/ops/pallas_kernels.py:711",
+                            "stroked"),
+    "expand_touches": ("expand_touches", "expand_touches",
+                       "expand_touches_plain",
                        "vello_tpu_torch/csrc/expand_touches.cu",
-                       "vello_tpu/ops/pallas_kernels.py:911"),
-    "msaa_coverage": ("msaa_coverage", "msaa_coverage_plain",
+                       "vello_tpu/ops/pallas_kernels.py:911", "msaa16"),
+    "msaa_coverage": ("msaa_coverage", "msaa_coverage",
+                      "msaa_coverage_plain",
                       "vello_tpu_torch/csrc/msaa_coverage.cu",
-                      "vello_tpu/ops/pallas_kernels.py:349"),
-    "composite_solid": ("composite_solid", "composite_solid_plain",
+                      "vello_tpu/ops/pallas_kernels.py:349", "msaa16"),
+    "composite_solid": ("composite_solid", "composite_solid",
+                        "composite_solid_plain",
                         "vello_tpu_torch/csrc/composite_solid.cu",
-                        "vello_tpu/ops/pallas_kernels.py:1303"),
-    "coverage_area": ("coverage_area", "coverage_area_plain",
+                        "vello_tpu/ops/pallas_kernels.py:1303", "msaa16"),
+    "coverage_area": ("coverage_area", "coverage_area",
+                      "coverage_area_plain",
                       "vello_tpu_torch/csrc/coverage_area.cu",
-                      "vello_tpu/ops/pallas_kernels.py:84"),
+                      "vello_tpu/ops/pallas_kernels.py:84", "area"),
+    "composite_src": ("composite_src", "composite_src",
+                      "composite_src_plain",
+                      "vello_tpu_torch/csrc/composite_src.cu",
+                      "vello_tpu/ops/pallas_kernels.py:1084",
+                      "gradient_image"),
 }
 
-# the kernels each frame path launches; each kernel is held to its plain
-# version on the inputs of the first path that launches it
+# frame path -> (scene, antialiasing, the launch counters of its kernels)
 PATHS = {
-    "msaa16": ("flatten", "expand_touches", "msaa_coverage",
-               "composite_solid"),
-    "area": ("flatten", "expand_touches", "coverage_area",
-             "composite_solid"),
+    "msaa16": ("filled_mmark", "msaa16",
+               ("flatten", "expand_touches", "msaa_coverage",
+                "composite_solid")),
+    "area": ("filled_mmark", "area",
+             ("flatten", "expand_touches", "coverage_area",
+              "composite_solid")),
+    "gradient_image": ("mixed_paint_mmark", "msaa16",
+                       ("flatten", "expand_touches", "msaa_coverage",
+                        "composite_src")),
+    "stroked": ("mmark", "msaa16",
+                ("flatten", "expand_touches", "msaa_coverage",
+                 "composite_solid")),
 }
-CHECKED_ON = {name: next(aa for aa, names in PATHS.items() if name in names)
-              for name in KERNELS}
 
 # f32 operations per unit of work, counted from each kernel's source
 # (compares, selects and integer steps count as one each)
 OPS_PER_LINE = 170           # K1: slot search, 2 cubic points, trim, DDA
+OPS_PER_STROKE_LINE = 250    # K1 stroke slot: 3 cubic points, 2 normals,
+                             # the 7-way selects, then a fill line's work
 OPS_PER_TOUCH = 150          # K2: slot search, DDA step, tile clip, rules
 OPS_PER_SAMPLE_TEST = 10     # K3: per touch, pixel and sample
 OPS_PER_COMPOSITE = 18       # K4: per fragment and pixel, 4 channels
 OPS_PER_AREA_TEST = 40       # K5: per touch and pixel, one divide included
+OPS_PER_SRC_COMPOSITE = 9    # K6: per fragment and pixel, 4 channels
 
 
 def fail(msg: str):
@@ -106,11 +139,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def capture_kernel_inputs(kernels, frame, names):
-    """Run one frame with the wrappers of ``names`` wrapped to record their
-    arguments; returns {name: (args, kwargs)}."""
+def capture_calls(module, frame, names):
+    """Run one frame with the functions ``names`` of ``module`` wrapped to
+    record their arguments; returns {name: (args, kwargs)}."""
     captured = {}
-    originals = {name: getattr(kernels, KERNELS[name][0]) for name in names}
+    originals = {name: getattr(module, name) for name in names}
 
     def recorder(name):
         def wrapped(*args, **kwargs):
@@ -120,12 +153,12 @@ def capture_kernel_inputs(kernels, frame, names):
 
     try:
         for name in names:
-            setattr(kernels, KERNELS[name][0], recorder(name))
+            setattr(module, name, recorder(name))
         frame()
         torch.cuda.synchronize()
     finally:
         for name in names:
-            setattr(kernels, KERNELS[name][0], originals[name])
+            setattr(module, name, originals[name])
     missing = set(names) - set(captured)
     if missing:
         fail(f"the frame did not call {sorted(missing)}")
@@ -139,12 +172,19 @@ def _nbytes(*ts) -> int:
 
 def bound(name, args, out):
     """(least ms, "bytes" or "operations") for one launch on these inputs:
-    each input read once and the output written once over the HBM rate,
-    against the operations these inputs need over the f32 rate."""
+    each input read once (of a composite's fragment rows, the ones its
+    walks cover) and the output written once over the HBM rate, against
+    the operations these inputs need over the f32 rate."""
     nbytes = _nbytes(*args, out)
-    if name == "flatten":
+    if name.startswith("flatten"):
         spack, incl, n_lines = args[:3]
-        ops = min(int(incl[-1]), n_lines) * OPS_PER_LINE
+        total = min(int(incl[-1]), n_lines)
+        stroke_lines = 0
+        if spack.shape[1] == 21:
+            counts = torch.diff(incl, prepend=incl[:1] * 0)
+            stroke_lines = min(int(counts[spack[:, 19] > 0.5].sum()), total)
+        ops = ((total - stroke_lines) * OPS_PER_LINE
+               + stroke_lines * OPS_PER_STROKE_LINE)
     elif name == "expand_touches":
         lpack, incl, n_touches = args[:3]
         ops = min(int(incl[-1]), n_touches) * OPS_PER_TOUCH
@@ -153,9 +193,16 @@ def bound(name, args, out):
         f = fidx.long()
         cnt = (starts[f + 1] - starts[f]) * valid[f]
         ops = int(cnt.sum()) * 256 * ns * OPS_PER_SAMPLE_TEST
-    elif name == "composite_solid":
-        cov, col, base, los, his = args
-        ops = int((his - los).clamp_min(0).sum()) * 256 * OPS_PER_COMPOSITE
+    elif name.startswith("composite"):
+        # a walk reads only its tiles' rows [los, his): the fragments
+        # hidden under an opaque full cover, and the rows past the live
+        # count, are never read
+        rows, los, his = args[:-3], args[-2], args[-1]
+        walked = int((his - los).clamp_min(0).sum())
+        nbytes = (_nbytes(*args[-3:], out) + walked
+                  * sum(r[0].numel() * r.element_size() for r in rows))
+        ops = walked * 256 * (OPS_PER_COMPOSITE if name == "composite_solid"
+                              else OPS_PER_SRC_COMPOSITE)
     else:
         trow, starts, backdrop, rule, valid = args[:5]
         cnt = (starts[1:] - starts[:-1]) * valid
@@ -169,13 +216,13 @@ def bound(name, args, out):
 def compare(name, got, ref):
     """Hold a kernel's output to its plain version's; returns the max
     abs error. Bars: integer rows and msaa coverage exact, coordinates
-    rtol 2e-6 / atol 1e-5, composite atol 2e-5, area coverage atol 1e-6
+    rtol 2e-6 / atol 1e-5, composites atol 2e-5, area coverage atol 1e-6
     (the same op order: expected 0)."""
     got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
     if got.shape != ref.shape or not np.isfinite(got).all():
         fail(f"{name}: shape {got.shape} vs {ref.shape} or non-finite")
     err = float(np.abs(got - ref).max()) if got.size else 0.0
-    if name == "flatten":
+    if name.startswith("flatten"):
         exact, coord = [4, 5, 6, 7] + list(range(10, 16)), [0, 1, 2, 3, 8, 9]
     elif name == "expand_touches":
         exact, coord = [5, 6, 7], [0, 1, 2, 3, 4]
@@ -193,13 +240,15 @@ def compare(name, got, ref):
         if err > 1e-6:
             fail(f"coverage_area: max abs err {err} > 1e-6")
     elif not np.allclose(got, ref, rtol=0, atol=2e-5):
-        fail(f"composite_solid: max abs err {err} > 2e-5")
+        fail(f"{name}: max abs err {err} > 2e-5")
     return err
 
 
-def run_path(aa, kernels, Renderer, RenderParams, resolve, scene, profile):
+def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
+             profile):
     """Drive one frame path at full size; returns (frame thunk, launch
     counts of its first frame)."""
+    scene_name, aa, used = PATHS[path]
     params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing=aa)
     caps = resolve(scene.encoding, params).capacities(params)
     r = Renderer(device="cuda")
@@ -211,30 +260,30 @@ def run_path(aa, kernels, Renderer, RenderParams, resolve, scene, profile):
     first_s = time.perf_counter() - t0
     launches = dict(kernels.launches)
     prof = r.last_profile
-    print(f"[{aa}] first_frame_s {first_s:.4f} tier {prof['tier']} retries "
+    print(f"[{path}] first_frame_s {first_s:.4f} tier {prof['tier']} retries "
           f"{prof['retries']} n_live {prof['n_live']} launches {launches}")
     want = dict(zip(prof["tier"], caps.key()))
     if prof["retries"] != 0 or prof["tier"] != want:
-        fail(f"[{aa}] tier {prof['tier']} / retries {prof['retries']}: "
+        fail(f"[{path}] tier {prof['tier']} / retries {prof['retries']}: "
              f"expected the host's tier {want} and no retry")
     if img.shape != (SIZE, SIZE, 4) or img.dtype != np.uint8:
-        fail(f"[{aa}] image {img.shape} {img.dtype}")
+        fail(f"[{path}] image {img.shape} {img.dtype}")
     if img[..., 3].min() != 255 or len(np.unique(img[::8, ::8, 0])) < 16:
-        fail(f"[{aa}] image is not an opaque, varied frame")
+        fail(f"[{path}] image is not an opaque, varied frame")
     for name, n in launches.items():
-        if n != (1 if name in PATHS[aa] else 0):
-            fail(f"[{aa}] kernel {name} launched {n} times in one frame")
+        if n != (1 if name in used else 0):
+            fail(f"[{path}] kernel {name} launched {n} times in one frame")
     frame = r.frame_thunk()
     _, overflow = frame()
     if int(overflow) != 0:
-        fail(f"[{aa}] warm frame overflow {int(overflow)}")
+        fail(f"[{path}] warm frame overflow {int(overflow)}")
     times = []
     for _ in range(WARM_FRAMES):
         t0 = time.perf_counter()
         frame()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    print(f"[{aa}] warm_ms_per_frame median {statistics.median(times):.3f} "
+    print(f"[{path}] warm_ms_per_frame median {statistics.median(times):.3f} "
           f"min {min(times):.3f} max {max(times):.3f} over {WARM_FRAMES} "
           f"frames; peak_mem_gb "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
@@ -248,10 +297,19 @@ def run_path(aa, kernels, Renderer, RenderParams, resolve, scene, profile):
             torch.cuda.synchronize()
         table = p.key_averages().table(sort_by="cuda_time_total",
                                        row_limit=40)
-        with open(os.path.join(profile, f"frame_profile_{aa}.txt"),
+        # the device events alone (an operator's row repeats its kernels'
+        # time)
+        from torch.autograd import DeviceType
+        device_ms = sum(getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0))
+                        for e in p.key_averages()
+                        if e.device_type == DeviceType.CUDA) / 1e3 / 3
+        with open(os.path.join(profile, f"frame_profile_{path}.txt"),
                   "w") as f:
-            f.write(f"3 warm frames, filled_mmark-30k {SIZE}^2 {aa}\n"
-                    f"{table}\n")
+            f.write(f"3 warm frames, {scene_name}-{COMPLEXITY}k {SIZE}^2 "
+                    f"{aa}\n{table}\n")
+        print(f"[{path}] device_ms_per_frame {device_ms:.4f} busy share "
+              f"{device_ms / statistics.median(times):.3f}")
         print(table[:6000])
     return frame, launches
 
@@ -280,7 +338,7 @@ def main():
 
     from vello_tpu_torch import Renderer, RenderParams, resolve
     from vello_tpu_torch.ops import fine, kernels
-    from vello_tpu_torch.scenes.test_scenes import filled_mmark
+    from vello_tpu_torch.scenes import test_scenes
 
     # 2. build
     t0 = time.perf_counter()
@@ -288,20 +346,29 @@ def main():
     print(f"build_s {time.perf_counter() - t0:.3f} (nvcc, "
           f"{len(kernels.SOURCES)} kernels in parallel)")
 
-    # 3. both frame paths at full size
-    scene = filled_mmark(COMPLEXITY, float(SIZE))
+    # 3. the frame paths at full size
+    scenes = {name: getattr(test_scenes, name)(COMPLEXITY, float(SIZE))
+              for name in {scene for scene, _, _ in PATHS.values()}}
     frames, path_launches = {}, {}
-    for aa in PATHS:
-        frames[aa], path_launches[aa] = run_path(
-            aa, kernels, Renderer, RenderParams, resolve, scene, args.profile)
+    for path, (scene_name, _, _) in PATHS.items():
+        frames[path], path_launches[path] = run_path(
+            path, kernels, Renderer, RenderParams, resolve,
+            scenes[scene_name], args.profile)
+    del scenes
 
     # 4. each kernel against its plain version, on its path's inputs
     captured = {}
-    for aa, names in PATHS.items():
-        mine = [n for n in names if CHECKED_ON[n] == aa]
-        captured.update(capture_kernel_inputs(kernels, frames[aa], mine))
+    for path in PATHS:
+        wrappers = {KERNELS[n][1] for n in KERNELS if KERNELS[n][5] == path}
+        calls = capture_calls(kernels, frames[path], sorted(wrappers))
+        for name, spec in KERNELS.items():
+            if spec[5] == path:
+                captured[name] = calls[spec[1]]
+    if captured["flatten_stroke_rows"][0][0].shape[1] != 21:
+        fail("the stroked frame gave K1 no stroke rows")
     results = []
-    for name, (wrapper, plain, source, replaces) in KERNELS.items():
+    for name, (counter, wrapper, plain, source, replaces,
+               path) in KERNELS.items():
         kargs, kw = captured[name]
         kfn = getattr(kernels, wrapper)
         pfn = getattr(kernels, plain, None) or getattr(fine, plain)
@@ -309,30 +376,40 @@ def main():
         ref = pfn(*kargs, **kw)
         torch.cuda.synchronize()
         err = compare(name, got, ref)
+        del got, ref
         ms = cuda_ms(lambda: kfn(*kargs, **kw), 20)
         plain_ms = cuda_ms(lambda: pfn(*kargs, **kw), 3)
-        bound_ms, bound_by = bound(name, kargs, got)
-        launches = path_launches[CHECKED_ON[name]][name]
+        bound_ms, bound_by = bound(name, kargs, kfn(*kargs, **kw))
+        launches = path_launches[path][counter]
         print(f"{name}: max_abs_err {err} kernel_ms {ms:.4f} plain_ms "
               f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
-              f"launches {launches} ({CHECKED_ON[name]} frame)")
+              f"launches {launches} ({path} frame)")
         results.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
 
+    # the paint evaluation (library PyTorch) on the gradient frame's inputs
+    (pargs, pkw), = capture_calls(fine, frames["gradient_image"],
+                                  ["eval_paints"]).values()
+    paint_ms = cuda_ms(lambda: fine.eval_paints(*pargs, **pkw), 5)
+    print(f"eval_paints: ms {paint_ms:.4f} on {pargs[0].shape[0]} "
+          f"fragments (gradient_image frame)")
+    del frames, captured, pargs, pkw
+
     # 5. smaller frames: GPU kernels against the port's CPU plain path
-    small = filled_mmark(4, 512.0)
-    for aa in PATHS:
+    for path, (scene_name, aa, _) in PATHS.items():
+        small = getattr(test_scenes, scene_name)(4, 512.0)
         sp = RenderParams(512, 512, base_color=BASE, antialiasing=aa)
         gpu_img = Renderer(device="cuda").render_u8(small, sp)
         cpu_img = Renderer(device="cpu").render_u8(small, sp)
         diff = np.abs(gpu_img.astype(np.int16) - cpu_img.astype(np.int16))
-        print(f"image_check 512x512 {aa}: max diff {int(diff.max())}, "
-              f"identical {float((diff == 0).mean()):.6f}")
+        print(f"image_check 512x512 {path} ({scene_name} {aa}): max diff "
+              f"{int(diff.max())}, identical "
+              f"{float((diff == 0).mean()):.6f}")
         if diff.max() > 1:
-            fail(f"{aa}: GPU and CPU images differ by {int(diff.max())} "
+            fail(f"{path}: GPU and CPU images differ by {int(diff.max())} "
                  f"levels")
 
     print(card)

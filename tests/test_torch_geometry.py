@@ -17,7 +17,8 @@ import jax.numpy as jnp
 
 import vello_tpu
 import vello_tpu_torch
-from test_torch_pipeline import edge_scene, mmark
+from test_torch_pipeline import (blurred_rects, edge_scene, image_quality,
+                                 mixed_paint, mmark, stroked_mmark)
 from vello_tpu.encoding.resolve import resolve as jax_resolve
 from vello_tpu.models.renderer import pack_buffers as jax_pack_buffers
 from vello_tpu.ops import flatten as jax_flatten
@@ -32,8 +33,12 @@ SIZE = 128
 
 # scene builders given the package to build through; edge_circle is
 # test_fused_touches.py's scene: its off-screen circle crosses x = 0, so
-# the left-edge verticals are live (has_edge True)
-SCENES = {"edge_circle": edge_scene, "mmark": mmark}
+# the left-edge verticals are live (has_edge True); mixed_paint,
+# image_quality and blurred_rects carry gradients, images and blurred
+# rects, so paint_pack has all 40 columns and ramps and atlas are filled
+SCENES = {"edge_circle": edge_scene, "mmark": mmark,
+          "mixed_paint": mixed_paint, "image_quality": image_quality,
+          "blurred_rects": blurred_rects}
 
 
 @pytest.fixture(scope="module", params=sorted(SCENES))
@@ -74,6 +79,25 @@ def test_pack_buffers_matches_jax(frame, slim, paint8):
     t = to_torch(ours, "cpu")
     for k in ours:
         np.testing.assert_array_equal(t[k].numpy(), np.asarray(ours[k]))
+
+
+@pytest.mark.parametrize("slim,paint8", [(False, False), (True, True)])
+def test_pack_buffers_stroke_fields_match_jax(slim, paint8):
+    """A device-stroked scene also packs seg_hw, seg_join and style_hw."""
+    params = RenderParams(SIZE, SIZE, antialiasing="msaa16")
+    jparams = vello_tpu.RenderParams(SIZE, SIZE, antialiasing="msaa16")
+    rs = resolve(stroked_mmark(vello_tpu_torch).encoding, params)
+    jrs = jax_resolve(stroked_mmark(vello_tpu).encoding, jparams)
+    caps = rs.capacities(params)
+    ours = pack_buffers(rs, caps, params, slim=slim, paint8=paint8)
+    ref = jax_pack_buffers(jrs, caps, jparams, slim=slim, paint8=paint8)
+    assert {"seg_hw", "seg_join", "style_hw"} <= set(ours)
+    assert sorted(ours) == sorted(ref)
+    for k in ref:
+        a, b = np.asarray(ours[k]), np.asarray(ref[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    assert (ours["seg_hw"] > 0).sum() > 0
 
 
 def _flatten_both(frame):

@@ -26,6 +26,9 @@ for name in names:
     importlib.import_module(name)
 from vello_tpu_torch.scenes.test_scenes import filled_mmark
 filled_mmark(1, 64.0)
+from vello_tpu_torch.ops import blur, paint
+assert callable(blur.blurred_rounded_rect_coverage)
+assert callable(paint.radial_t)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "vello_tpu"))
 print("MODULES", len(names), "FOREIGN", len(loaded), loaded[:5])
@@ -111,6 +114,22 @@ def test_cpu_tensors_take_plain_versions():
         cov = kernels.coverage_area(*area_args, centers)
         assert torch.equal(cov, fine.coverage_area_plain(*area_args,
                                                          centers))
+
+    src = col[:, :, None] * cov[:, None, :]
+    out = kernels.composite_src(src, base, los, his)
+    assert torch.equal(out, fine.composite_src_plain(src, base, los, his))
+
+    # K1 with the stroke columns [hw, jnx, jny, m, join]: one mini of 7
+    sspack = torch.zeros(1, 21)
+    sspack[0, 0:8] = torch.tensor([0., 0., 10., 0., 20., 0., 30., 0.])
+    sspack[0, 8] = 7.0
+    sspack[0, 12] = sspack[0, 14] = 4.0      # rect tx1, stride: live
+    sspack[0, 16] = 2.0
+    sspack[0, 19] = 1.0
+    slp = kernels.flatten_lines(sspack, torch.tensor([7], dtype=torch.int32),
+                                1024, 64.0, 64.0)
+    assert slp.shape == (16, 1024)
+    assert slp[6, :7].sum() > 0 and slp[6, 7:].sum() == 0    # live rows
     assert all(v == 0 for v in kernels.launches.values()), kernels.launches
 
 

@@ -10,6 +10,8 @@ the bytes identical."""
 import dataclasses
 import importlib
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -51,14 +53,93 @@ def evenodd_star(pkg):
     return scene
 
 
+def _test_scenes(pkg):
+    return importlib.import_module(f"{pkg.__name__}.scenes.test_scenes")
+
+
 def mmark(pkg):
-    ts = importlib.import_module(f"{pkg.__name__}.scenes.test_scenes")
-    return ts.filled_mmark(1, float(SIZE))
+    return _test_scenes(pkg).filled_mmark(1, float(SIZE))
+
+
+def mixed_paint(pkg):
+    """80% solid, 15% linear/radial/sweep gradient, 5% bilinear image."""
+    return _test_scenes(pkg).mixed_paint_mmark(1, float(SIZE))
+
+
+def gradient_suite(pkg):
+    return _test_scenes(pkg).gradient_suite(float(SIZE))
+
+
+def stroked_mmark(pkg):
+    """The reference's mmark shape, drawn with device stroke expansion."""
+    return _test_scenes(pkg).mmark(1, float(SIZE))
+
+
+def stroked_mmark_rotated(pkg):
+    """stroked_mmark turned by 0.3 rad about the center, so that no stroke
+    edge is exactly vertical (see test_stroked_area_frame_near_jax)."""
+    c, s_ = np.cos(0.3), np.sin(0.3)
+    h = SIZE / 2
+    scene = pkg.Scene()
+    scene.append(stroked_mmark(pkg),
+                 pkg.Affine((c, s_, -s_, c, h - h * c + h * s_,
+                             h - h * s_ - h * c)))
+    return scene
+
+
+def image_texture():
+    """A 4x4 RGBA texture with two translucent texels."""
+    tex = np.random.default_rng(11).integers(0, 256, (4, 4, 4))
+    tex[..., 3] = 255
+    tex[1, 2, 3] = tex[3, 0, 3] = 160
+    return tex.astype(np.uint8)
+
+
+def image_quality(pkg):
+    """Nearest (REPEAT), bilinear (REFLECT) and bicubic (PAD) image fills
+    at a brush scale of 5.25. The brush offsets keep every pixel center at
+    least 0.05 px from a nearest-sampling texel boundary and from the
+    REPEAT wrap, where a one-ulp difference between backends would pick
+    another texel."""
+    s = pkg.Scene()
+    q, e = pkg.peniko.ImageQuality, pkg.Extend
+    for i, (qual, ext) in enumerate([(q.LOW, e.REPEAT), (q.MEDIUM, e.REFLECT),
+                                     (q.HIGH, e.PAD)]):
+        img = pkg.Image(image_texture(), ext, ext, qual, alpha=0.9)
+        brush = pkg.Affine((5.25, 0.0, 0.0, 5.25, 10.1 + 42 * i, 6.8))
+        s.fill(pkg.Fill.NON_ZERO, pkg.Affine.identity(), img, brush,
+               pkg.kurbo.rect_path(2 + 42 * i, 4, 40 + 42 * i, 124))
+    return s
+
+
+def blurred_rects(pkg):
+    """A blurred rounded rect and an inset (inverse) one over a solid
+    disc."""
+    s = pkg.Scene()
+    s.fill(pkg.Fill.NON_ZERO, pkg.Affine.identity(),
+           pkg.Color(0.87, 0.79, 0.13, 1.0), None,
+           pkg.kurbo.circle_path(64, 64, 40))
+    s.draw_blurred_rounded_rect(pkg.Affine.identity(),
+                                pkg.Rect(16, 20, 80, 70),
+                                pkg.Color(0.2, 0.6, 0.9, 0.8), 8.0, 5.0)
+    s.draw_blurred_rounded_rect(pkg.Affine.translate(50, 56),
+                                pkg.Rect(0, 0, 60, 50),
+                                pkg.Color(0.7, 0.2, 0.3, 0.9), 4.0, 3.0,
+                                inverse=True)
+    return s
 
 
 # scene builders, each given the package to build through
 SCENES = {"mmark": mmark, "edge_circle": edge_scene,
-          "evenodd_star": evenodd_star}
+          "evenodd_star": evenodd_star, "mixed_paint": mixed_paint,
+          "gradient_suite": gradient_suite, "image_quality": image_quality,
+          "blurred_rects": blurred_rects, "stroked_mmark": stroked_mmark,
+          "stroked_mmark_rotated": stroked_mmark_rotated}
+# scenes with non-solid paints (the src composite, K6) and with device
+# strokes (K1's stroke rows)
+PAINT_SCENES = ("mixed_paint", "gradient_suite", "image_quality",
+                "blurred_rects")
+STROKE_SCENES = ("stroked_mmark", "stroked_mmark_rotated")
 
 
 @pytest.fixture(scope="module")
@@ -119,6 +200,123 @@ def test_frame_matches_jax(jax_interpret, name, aa):
     assert len(np.unique(img.reshape(-1, 4), axis=0)) > 8
 
 
+def _eager_area_cumsum(seg, y_edge):
+    """The running cumsum of ``fine_xla.coverage_delta`` rows, the formula
+    evaluated op by op (no fused program, so no multiply-add contraction)
+    and summed in f32 on the host."""
+    from vello_tpu.ops import fine_xla
+    rows = np.asarray(fine_xla.coverage_delta(jnp.asarray(seg),
+                                              jnp.asarray(y_edge)))
+    return np.cumsum(rows, axis=0, dtype=np.float32)
+
+
+def uncontracted_area(monkeypatch):
+    """Route the JAX frame's area coverage through ``_eager_area_cumsum``
+    instead of the interpret-mode Pallas kernel. For an exactly vertical
+    touch the area term divides by xmax - xmin = 1e-6 (the nudge of
+    fine.wgsl), and XLA-CPU contracts ``d * d - c * c`` into a fused
+    multiply-add inside the compiled kernel, which moves such a pixel by up
+    to 0.1 (test_torch_area.py); the port rounds every op, as the formula
+    evaluated op by op does. Device strokes of axis-aligned segments make
+    such touches common."""
+    from vello_tpu.ops import pallas_kernels
+
+    def cumsum(seg, y_edge, interpret=None):
+        out = jax.ShapeDtypeStruct((seg.shape[0], 256), jnp.float32)
+        return jax.pure_callback(_eager_area_cumsum, out, seg, y_edge)
+
+    monkeypatch.setattr(pallas_kernels, "coverage_cumsum_pallas", cumsum)
+    jax_render._JIT_CACHE.clear()
+    jax_render._JIT_B_CACHE.clear()
+
+
+def spy_composites(monkeypatch):
+    """Count the composite wrappers' calls and the K1 calls given stroke
+    rows (a 21-column segment pack)."""
+    from vello_tpu_torch.ops import kernels
+    calls = {"composite_src": 0, "composite_solid": 0, "stroke_rows": 0}
+
+    def spy(wrapper):
+        original = getattr(kernels, wrapper)
+
+        def wrapped(*args, **kwargs):
+            calls[wrapper] += 1
+            return original(*args, **kwargs)
+        monkeypatch.setattr(kernels, wrapper, wrapped)
+
+    spy("composite_src")
+    spy("composite_solid")
+    flatten_lines = kernels.flatten_lines
+
+    def flatten_spy(spack, *args):
+        calls["stroke_rows"] += spack.shape[1] == 21
+        return flatten_lines(spack, *args)
+    monkeypatch.setattr(kernels, "flatten_lines", flatten_spy)
+    return calls
+
+
+# the axis-aligned stroked_mmark in area AA: test_stroked_area_frame_near_jax
+PAINT_AND_STROKE_CASES = [
+    (name, aa) for name in PAINT_SCENES + STROKE_SCENES
+    for aa in ("msaa16", "area") if (name, aa) != ("stroked_mmark", "area")]
+
+
+@pytest.mark.parametrize("name,aa", PAINT_AND_STROKE_CASES)
+def test_paint_and_stroke_frames_match_jax(jax_interpret, monkeypatch, name,
+                                           aa):
+    """Non-solid paints go through eval_paints and the src composite (K6);
+    device strokes through K1's stroke rows and the solid composite (K4).
+    The base is 0.12, off the u8 half level 25.5 (see test_torch_area.py);
+    the JAX frame's area coverage is ``uncontracted_area``'s."""
+    calls = spy_composites(monkeypatch)
+    if aa == "area":
+        uncontracted_area(monkeypatch)
+
+    params = RenderParams(SIZE, SIZE, base_color=(0.12, 0.12, 0.12, 1.0),
+                          antialiasing=aa)
+    img, prof = compare_frames(name, params)
+    assert prof["retries"] == 0
+    assert img[..., 3].min() == 255
+    assert len(np.unique(img.reshape(-1, 4), axis=0)) > 8
+    stroked = name in STROKE_SCENES
+    assert calls == {"composite_src": int(not stroked),
+                     "composite_solid": int(stroked),
+                     "stroke_rows": int(stroked)}
+
+
+def test_stroked_area_frame_near_jax(jax_interpret, monkeypatch):
+    """stroked_mmark in area AA, the one frame held to looser bars.
+
+    Its strokes are axis-aligned, so many touches are exactly vertical,
+    where the area term divides by xmax - xmin = 1e-6 and a one-ulp change
+    of an input moves a pixel's coverage by up to ~0.1. The bevel triangle
+    of a straight continuation also takes its side from the sign of a dot
+    product that is 0 in exact arithmetic. The JAX package's interpret-mode
+    kernels contract multiply-adds (XLA-CPU), the port rounds every op, so
+    their touches differ by ulps there. Measured: 2 pixels of 16384 two
+    levels apart (7 pixels up to 8 levels against the interpret-mode area
+    kernel). stroked_mmark_rotated, with no vertical edge, meets the full
+    bars in area AA."""
+    calls = spy_composites(monkeypatch)
+    uncontracted_area(monkeypatch)
+    params = RenderParams(SIZE, SIZE, base_color=(0.12, 0.12, 0.12, 1.0),
+                          antialiasing="area")
+    ours, ref, jparams = resolve_both("stroked_mmark", params)
+    port = Renderer(device="cpu")
+    got = port.render_resolved(ours, params, out="rgba8")
+    ref_r = JaxRenderer()
+    want = ref_r.render_resolved(ref, jparams, out="rgba8")
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16)).max(-1)
+    assert diff.max() <= 2
+    assert (diff > 1).sum() <= 4
+    assert (diff == 0).mean() >= 0.99
+    for k in ("tier", "retries", "n_live"):
+        assert port.last_profile[k] == ref_r.last_profile[k], k
+    assert port.last_profile["retries"] == 0
+    assert calls == {"composite_src": 0, "composite_solid": 1,
+                     "stroke_rows": 1}
+
+
 @pytest.mark.parametrize("name,shrink", [("mmark", {"est_touches": 0.5}),
                                          ("edge_circle",
                                           {"has_left_edge": False})])
@@ -154,6 +352,7 @@ def test_render_and_frame_thunk():
 
 
 def test_unported_features_raise():
+    """Layers (kernel K7) and render_mode='speed' still raise."""
     params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing="msaa16")
     pkg = vello_tpu_torch
     scene = pkg.Scene()

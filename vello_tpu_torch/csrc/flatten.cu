@@ -1,8 +1,8 @@
 // K1 flatten: curves -> (16, L) line pack.
 //
 // Replaces vello_tpu/ops/pallas_kernels.py:711 flatten_pallas (body
-// _flatten_kernel, :570), fill rows only; the stroke rows are not ported
-// yet.
+// _flatten_kernel, :570): the fill rows and the stroke rows (device stroke
+// expansion, :608-633).
 //
 // What bounds it on the H100: memory. Each line slot reads one 64-byte
 // segment row (plus ~log2(S) 4-byte probes of the count scan, which stay
@@ -19,6 +19,16 @@
 // order of _flatten_kernel and is built with --fmad=false: the floors and
 // ceils of the DDA count must agree with the JAX package and the host
 // estimator bit for bit, or tiers come out too small.
+//
+// Stroke rows: a segment row of 21 columns carries [hw, jnx, jny, m, join]
+// after the 16 fill columns. A slot of a stroked segment (m > 0) is line
+// se = sub - 7 * si of centerline mini si = floor((sub + 0.5) / 7): the
+// centerline is evaluated at si/m, (si+1)/m and (si+2)/m and the slot line
+// taken from stroke_slot_line (ops/flatten.py), whose rsqrt is computed as
+// 1.0f / sqrtf(x), both correctly rounded as XLA and the plain version
+// round them (CUDA's rsqrtf is approximate). From the y trim on, a stroke
+// line is a fill line. A thread of a stroked slot evaluates three points
+// instead of two and selects among 7 candidate lines, ~80 more flops.
 
 #include <cuda_runtime.h>
 
@@ -29,6 +39,9 @@ namespace {
 constexpr float kTile = 16.0f;
 constexpr float kEdgeEps = 0.0009765625f;  // 2^-10
 
+constexpr float kStrokeSlots = 7.0f;
+constexpr float kTiny = 1e-24f;
+
 __device__ __forceinline__ float cubic(float t, float a, float b, float c,
                                        float d) {
   float mt = 1.0f - t;
@@ -36,30 +49,100 @@ __device__ __forceinline__ float cubic(float t, float a, float b, float c,
          t * t * t * d;
 }
 
+// 7-way select on an integer-valued float e in [0, 6] (flatten._sel7)
+__device__ __forceinline__ float sel7(float e, float v0, float v1, float v2,
+                                      float v3, float v4, float v5,
+                                      float v6) {
+  float lo = e < 0.5f ? v0 : (e < 1.5f ? v1 : (e < 2.5f ? v2 : v3));
+  float hi = e < 4.5f ? v4 : (e < 5.5f ? v5 : v6);
+  return e < 3.5f ? lo : hi;
+}
+
+// ops/flatten.stroke_slot_line for one slot: the endpoints of edge e of
+// mini i (chord p0 -> p1, next chord p1 -> p2) of a stroke of half-width hw
+__device__ void stroke_slot_line(float p0x, float p0y, float p1x, float p1y,
+                                 float p2x, float p2y, float hw, float jnx,
+                                 float jny, float join, float i, float e,
+                                 float m, float* ax, float* ay, float* bx,
+                                 float* by) {
+  float dx = p1x - p0x;
+  float dy = p1y - p0y;
+  float l2 = dx * dx + dy * dy;
+  float k = hw * (1.0f / sqrtf(fmaxf(l2, kTiny)));
+  float nx = dy * k;
+  float ny = -dx * k;
+  float d2x = p2x - p1x;
+  float d2y = p2y - p1y;
+  float l2b = d2x * d2x + d2y * d2y;
+  float kb = hw * (1.0f / sqrtf(fmaxf(l2b, kTiny)));
+  bool inner = i < m - 0.5f;
+  float n2x = inner ? d2y * kb : jnx;
+  float n2y = inner ? -d2x * kb : jny;
+  bool has_tri = (inner || join > 0.5f) && (l2 > kTiny);
+  float s = (dx * n2x + dy * n2y >= 0.0f) ? 1.0f : -1.0f;
+  float c1x = p1x + s * nx;
+  float c1y = p1y + s * ny;
+  float c2x = p1x + s * n2x;
+  float c2y = p1y + s * n2y;
+  bool pos = s > 0.0f;
+  float t1x = has_tri ? (pos ? c1x : c2x) : p1x;
+  float t1y = has_tri ? (pos ? c1y : c2y) : p1y;
+  float t2x = has_tri ? (pos ? c2x : c1x) : p1x;
+  float t2y = has_tri ? (pos ? c2y : c1y) : p1y;
+  if (l2 <= kTiny) {  // zero-length mini: the whole slot group collapses
+    *ax = *bx = p1x;
+    *ay = *by = p1y;
+    return;
+  }
+  *ax = sel7(e, p0x + nx, p1x + nx, p1x - nx, p0x - nx, p1x, t1x, t2x);
+  *ay = sel7(e, p0y + ny, p1y + ny, p1y - ny, p0y - ny, p1y, t1y, t2y);
+  *bx = sel7(e, p1x + nx, p1x - nx, p0x - nx, p0x + nx, t1x, t2x, p1x);
+  *by = sel7(e, p1y + ny, p1y - ny, p0y - ny, p0y + ny, t1y, t2y, p1y);
+}
+
+// kCols: 16 (fill rows only) or 21 (with the stroke columns); a fill-only
+// pack compiles without the stroke branch
+template <int kCols>
 __global__ void flatten_kernel(const float* __restrict__ spack,
                                const int* __restrict__ incl, int n_segs,
-                               float* __restrict__ out, int n_lines,
-                               float hi, float height) {
+                               float* __restrict__ out, int n_lines, float hi,
+                               float height) {
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_lines) return;
   int total = incl[n_segs - 1];
-  float r[16];
+  float r[21];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) r[k] = 0.0f;
+  for (int k = 0; k < 21; ++k) r[k] = 0.0f;
   if (p < total) {
-    const float* row = spack + (size_t)vt::upper_bound(incl, n_segs, p) * 16;
+    const float* row =
+        spack + (size_t)vt::upper_bound(incl, n_segs, p) * kCols;
 #pragma unroll
-    for (int k = 0; k < 16; ++k) r[k] = row[k];
+    for (int k = 0; k < kCols; ++k) r[k] = row[k];
   }
   float n = fmaxf(r[8], 1.0f);
   float pfr = (float)p;
   float sub = pfr - r[9];
   float t0 = sub / n;
   float t1 = (sub + 1.0f) / n;
-  float p0x = cubic(t0, r[0], r[2], r[4], r[6]);
-  float p0y = cubic(t0, r[1], r[3], r[5], r[7]);
-  float p1x = cubic(t1, r[0], r[2], r[4], r[6]);
-  float p1y = cubic(t1, r[1], r[3], r[5], r[7]);
+  float p0x, p0y, p1x, p1y;
+  if (kCols == 21 && r[19] > 0.5f) {  // a stroked segment's slot
+    float m = fmaxf(r[19], 1.0f);
+    float si = floorf((sub + 0.5f) * (1.0f / kStrokeSlots));
+    float se = sub - kStrokeSlots * si;
+    float s0 = si / m, s1 = (si + 1.0f) / m, s2 = (si + 2.0f) / m;
+    stroke_slot_line(cubic(s0, r[0], r[2], r[4], r[6]),
+                     cubic(s0, r[1], r[3], r[5], r[7]),
+                     cubic(s1, r[0], r[2], r[4], r[6]),
+                     cubic(s1, r[1], r[3], r[5], r[7]),
+                     cubic(s2, r[0], r[2], r[4], r[6]),
+                     cubic(s2, r[1], r[3], r[5], r[7]), r[16], r[17], r[18],
+                     r[20], si, se, m, &p0x, &p0y, &p1x, &p1y);
+  } else {
+    p0x = cubic(t0, r[0], r[2], r[4], r[6]);
+    p0y = cubic(t0, r[1], r[3], r[5], r[7]);
+    p1x = cubic(t1, r[0], r[2], r[4], r[6]);
+    p1y = cubic(t1, r[1], r[3], r[5], r[7]);
+  }
 
   // y trim (parametric; untrimmed endpoints stay bit-identical)
   float y0 = p0y, y1 = p1y;
@@ -125,11 +208,20 @@ __global__ void flatten_kernel(const float* __restrict__ spack,
 }  // namespace
 
 extern "C" int vt_flatten(const float* spack, const int* incl, int n_segs,
-                          float* out, int n_lines, float hi, float height,
-                          cudaStream_t stream) {
+                          int cols, float* out, int n_lines, float hi,
+                          float height, cudaStream_t stream) {
   const int threads = 256;
   int blocks = (n_lines + threads - 1) / threads;
-  flatten_kernel<<<blocks, threads, 0, stream>>>(spack, incl, n_segs, out,
-                                                 n_lines, hi, height);
+  if (cols == 16) {
+    flatten_kernel<16><<<blocks, threads, 0, stream>>>(spack, incl, n_segs,
+                                                       out, n_lines, hi,
+                                                       height);
+  } else if (cols == 21) {
+    flatten_kernel<21><<<blocks, threads, 0, stream>>>(spack, incl, n_segs,
+                                                       out, n_lines, hi,
+                                                       height);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

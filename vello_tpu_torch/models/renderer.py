@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..encoding.config import Capacities, RenderParams, next_size
-from ..encoding.resolve import ResolvedScene, resolve
+from ..encoding.resolve import PAINT_IMAGE, ResolvedScene, resolve
 from ..pipeline.render import PipelineStatic, get_pipeline
 from ..scene import Scene
 
@@ -151,14 +151,14 @@ class Renderer:
                 "not ported (ROADMAP: not ported unless a need appears)")
 
     def _device_bufs(self, rs: ResolvedScene, caps: Capacities,
-                     params: RenderParams) -> dict:
+                     params: RenderParams, paint8: bool) -> dict:
         key = (caps.key(), params.width, params.height,
-               tuple(params.base_color), str(self.device))
+               tuple(params.base_color), str(self.device), paint8)
         cached = getattr(rs, _CACHE_ATTR, None)
         if cached is not None and cached[0] == key:
             return cached[1]
         bufs = to_torch(pack_buffers(rs, caps, params, slim=True,
-                                     paint8=True), self.device)
+                                     paint8=paint8), self.device)
         object.__setattr__(rs, _CACHE_ATTR, (key, bufs))
         return bufs
 
@@ -170,7 +170,14 @@ class Renderer:
                 "scenes with layers need the layered compositor and kernel "
                 "K7 (fine_composite_over), not ported yet (ROADMAP item 10)")
         caps = rs.capacities(params)
-        kinds = tuple(sorted(set(int(k) for k in rs.paint_kind)))
+        kinds = set(int(k) for k in rs.paint_kind)
+        if PAINT_IMAGE in kinds:
+            # the image sampling modes present, as 10 + quality markers
+            quals = rs.image_rec[rs.paint_kind == PAINT_IMAGE, 6]
+            kinds |= {10 + int(q) for q in set(quals.tolist())}
+        # solid colors only: paint_pack shrinks to 8 columns
+        paint8 = kinds <= {0}
+        kinds = tuple(sorted(kinds))
         # live-fragment cap: an exact host upper bound plus a small margin
         # for f32 tile-assignment jitter; bit 16 doubles it on a retry
         n_live = min(caps.n_path_tiles,
@@ -194,7 +201,7 @@ class Renderer:
                 has_edge=has_edge, has_stroke=bool(rs.has_stroke),
                 max_lines=int(rs.max_lines))
             fn = get_pipeline(static, u8_out=(out == "rgba8"))
-            bufs = self._device_bufs(rs, caps, params)
+            bufs = self._device_bufs(rs, caps, params, paint8)
             frame = (lambda f=fn, b=bufs: f(b))
             self._frame = frame
             img, overflow_t = frame()

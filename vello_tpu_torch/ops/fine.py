@@ -1,10 +1,13 @@
 """Fine rasterization, plain PyTorch (counterpart of
-``vello_tpu/ops/fine_xla.py``: area and msaa coverage, solid composite).
+``vello_tpu/ops/fine_xla.py``: area and msaa coverage, paint evaluation,
+composites).
 
 These are the plain versions of kernels K3 (sample-mask msaa coverage),
-K4 (ordered src-over of solid colors) and K5 (exact-area coverage);
-``ops/kernels.py`` runs them for tensors on the CPU and holds the CUDA
-kernels against them on the GPU.
+K4 (ordered src-over of solid colors), K5 (exact-area coverage) and K6
+(ordered src-over of materialized src rows); ``ops/kernels.py`` runs them
+for tensors on the CPU and holds the CUDA kernels against them on the GPU.
+``eval_paints`` is library PyTorch on whichever device its tensors are on
+(in the JAX package it is XLA, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -12,6 +15,11 @@ from __future__ import annotations
 import torch
 
 from ..encoding.config import TILE_H, TILE_W
+from ..encoding.resolve import (PAINT_BLUR_RECT, PAINT_GRADIENT,
+                                PAINT_IMAGE)
+from .blur import blurred_rounded_rect_coverage
+from .paint import (apply_extend_dynamic, cubic_weights, linear_t, radial_t,
+                    sweep_t)
 
 NPX = TILE_H * TILE_W  # 256 pixels per tile
 
@@ -208,3 +216,165 @@ def composite_solid_plain(cov, col, base_premul, los, his):
         upd = cl * c + (1.0 - cl[:, 3:4] * c) * dst
         dst = torch.where((k < n)[:, None, None], upd, dst)
     return dst
+
+
+def composite_src_plain(src, base_premul, los, his):
+    """Plain version of kernel K6: per tile g, the ordered src-over of the
+    premultiplied src rows [los[g], his[g]) onto the premultiplied base
+    color, dst = src + (1 - src.a) * dst (the sequential walk of
+    fine.wgsl). src (F, 4, 256) -> (G, 4, 256)."""
+    g = los.shape[0]
+    dst = base_premul[None, :, None].expand(g, 4, NPX).clone()
+    n = (his - los).clamp_min(0)
+    kmax = int(n.max()) if g else 0
+    for k in range(kmax):
+        j = (los.long() + k).clamp_max(src.shape[0] - 1)
+        s = src[j]                                        # (G, 4, 256)
+        upd = s + (1.0 - s[:, 3:4]) * dst
+        dst = torch.where((k < n)[:, None, None], upd, dst)
+    return dst
+
+
+def _clip(x, lo, hi):
+    """jnp.clip with tensor bounds: min(max(x, lo), hi)."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _texels(planes, idx):
+    """Texels of a channel-planar (4, M) table at indices idx (N, 256), as
+    (N, 4, 256): one 1-D gather per channel. (A row gather of the (M, 4)
+    table, as the JAX package writes it, moves 16-byte rows and ran at a
+    few percent of memory speed on the H100.)"""
+    idx = idx.long()
+    return torch.stack([planes[c][idx] for c in range(4)], dim=1)
+
+
+def eval_paints(tile_px, tile_py, paint_kind, color, grad_rec, paint_inv,
+                image_rec, blur_rec, ramps, atlas, kinds_present):
+    """Per-fragment paints, channel-planar (``fine_xla.eval_paints``).
+
+    tile_px/tile_py (N,) f32 tile origins in pixels; paint_kind (N,) i32;
+    color (N, 4) premultiplied; grad_rec (N, 12), paint_inv (N, 6),
+    image_rec (N, 8), blur_rec (N, 8) the paint records; ramps (R, 512, 4)
+    straight-alpha LUTs; atlas (H, W, 4) the image atlas. kinds_present
+    names the paint kinds that occur, with 10 + quality for each image
+    quality (10 nearest, 11 bilinear, 12 bicubic): absent kinds are not
+    evaluated. Every present kind is evaluated for every fragment and the
+    fragment's own is selected. Returns (N, 4, 256) premultiplied RGBA."""
+    n = tile_px.shape[0]
+    out = color[:, :, None].expand(n, 4, NPX)
+    if not any(k in kinds_present
+               for k in (PAINT_GRADIENT, PAINT_IMAGE, PAINT_BLUR_RECT)):
+        return out
+    px, py = _pixel_iota(tile_px.device)
+    gx = tile_px[:, None] + px + 0.5
+    gy = tile_py[:, None] + py + 0.5
+    inv = paint_inv
+    lx = gx * inv[:, 0, None] + gy * inv[:, 2, None] + inv[:, 4, None]
+    ly = gx * inv[:, 1, None] + gy * inv[:, 3, None] + inv[:, 5, None]
+
+    if PAINT_GRADIENT in kinds_present:
+        g = grad_rec
+
+        def f(k):
+            return g[:, k, None]
+
+        kindg = f(0)
+        t_lin = linear_t(lx, ly, f(2), f(3), f(4), f(5))
+        t_rad, valid_rad = radial_t(lx, ly, f(2), f(3), f(4), f(5), f(6),
+                                    f(7))
+        t_swp = sweep_t(lx, ly, f(2), f(3), f(8), f(9))
+        t = torch.where(kindg == 0, t_lin,
+                        torch.where(kindg == 1, t_rad, t_swp))
+        valid = valid_rad | (kindg != 1)
+        t = apply_extend_dynamic(t, f(1).to(torch.int32))
+        rw = ramps.shape[1]
+        planes = ramps.reshape(-1, 4).T.contiguous()      # (4, R * 512)
+        xg = torch.clip(t, 0.0, 1.0) * (rw - 1)
+        i0 = torch.floor(xg).to(torch.int32).clamp(0, rw - 2)
+        frac = (xg - i0.to(torch.float32))[:, None]
+        base_ix = g[:, 10].to(torch.int32)[:, None] * rw + i0
+        cg = (_texels(planes, base_ix) * (1.0 - frac)
+              + _texels(planes, base_ix + 1) * frac)      # (N, 4, 256)
+        ag = cg[:, 3:4]
+        grad_p = torch.cat([cg[:, :3] * ag, ag], dim=1)
+        grad_p = torch.where(valid[:, None, :], grad_p, 0.0)
+        out = torch.where((paint_kind == PAINT_GRADIENT)[:, None, None],
+                          grad_p, out)
+
+    if PAINT_IMAGE in kinds_present:
+        r = image_rec
+        ax, ay = r[:, 0, None], r[:, 1, None]
+        iw, ih = r[:, 2, None], r[:, 3, None]
+        xe = r[:, 4, None].to(torch.int32)
+        ye = r[:, 5, None].to(torch.int32)
+        qual = r[:, 6].to(torch.int32)[:, None, None]
+        alpha = r[:, 7][:, None, None]
+        sw = torch.clamp_min(iw, 1.0)
+        sh = torch.clamp_min(ih, 1.0)
+        # the clamps keep a REPEAT image from reading its atlas neighbour
+        ux = apply_extend_dynamic((lx - 0.5) / sw, xe) * sw
+        uy = apply_extend_dynamic((ly - 0.5) / sh, ye) * sh
+        ux = torch.minimum(torch.clamp_min(ux, 0.0), sw - 1e-3)
+        uy = torch.minimum(torch.clamp_min(uy, 0.0), sh - 1e-3)
+        xf = torch.floor(ux)
+        yf = torch.floor(uy)
+        fx = (ux - xf)[:, None]
+        fy = (uy - yf)[:, None]
+        aw = atlas.shape[1]
+        planes = atlas.reshape(-1, 4).T.contiguous()      # (4, H * W)
+        xmax = (ax + iw - 1).to(torch.int32)
+        ymax = (ay + ih - 1).to(torch.int32)
+        xmin = ax.to(torch.int32)
+        ymin = ay.to(torch.int32)
+
+        def tex(xi, yi):
+            xi = _clip(xi, xmin, xmax)
+            yi = _clip(yi, ymin, ymax)
+            return _texels(planes, yi * aw + xi)          # (N, 4, 256)
+
+        x0i = (ax + xf).to(torch.int32)
+        y0i = (ay + yf).to(torch.int32)
+        img_rgba = None
+        if 11 in kinds_present or not (10 in kinds_present
+                                       or 12 in kinds_present):
+            c00 = tex(x0i, y0i)
+            c01 = tex(x0i + 1, y0i)
+            c10 = tex(x0i, y0i + 1)
+            c11 = tex(x0i + 1, y0i + 1)
+            img_rgba = ((c00 * (1 - fx) + c01 * fx) * (1 - fy)
+                        + (c10 * (1 - fx) + c11 * fx) * fy)
+        if 10 in kinds_present:
+            near = tex((ax + torch.floor(ux + 0.5)).to(torch.int32),
+                       (ay + torch.floor(uy + 0.5)).to(torch.int32))
+            img_rgba = near if img_rgba is None else \
+                torch.where(qual == 0, near, img_rgba)
+        if 12 in kinds_present:
+            wx = cubic_weights(fx)
+            wy = cubic_weights(fy)
+            acc = 0.0
+            for j in range(4):
+                row = 0.0
+                for i in range(4):
+                    row = row + tex(x0i + (i - 1), y0i + (j - 1)) * wx[i]
+                acc = acc + row * wy[j]
+            cub = torch.clip(acc, 0.0, 1.0)
+            img_rgba = cub if img_rgba is None else \
+                torch.where(qual == 2, cub, img_rgba)
+        img_p = img_rgba * alpha                          # (N, 4, 256)
+        out = torch.where((paint_kind == PAINT_IMAGE)[:, None, None],
+                          img_p, out)
+
+    if PAINT_BLUR_RECT in kinds_present:
+        br = blur_rec
+
+        def fb(k):
+            return br[:, k, None]
+
+        cov = blurred_rounded_rect_coverage(lx, ly, fb(0), fb(1), fb(2),
+                                            fb(3), fb(4), fb(5))
+        cov = torch.where(fb(6) != 0.0, 1.0 - cov, cov)   # inset shadows
+        blur_p = color[:, :, None] * cov[:, None, :]
+        out = torch.where((paint_kind == PAINT_BLUR_RECT)[:, None, None],
+                          blur_p, out)
+    return out

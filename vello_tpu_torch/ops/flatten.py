@@ -1,11 +1,13 @@
 """Device-side flattening: curves -> line soup with viewport clipping
 (counterpart of ``vello_tpu/ops/flatten.py``, fused path only).
 
-Segment-scale work (degree elevation, Wang counts, the count scan) is
-PyTorch; the per-line work (cubic evaluation at uniform t, y trim, x clamp,
-left-edge detection, DDA touch counts) is kernel K1 in ``ops/kernels.py``.
-The f32 op order follows the JAX package so that counts agree bit for bit
-with it and with the host estimator.
+Segment-scale work (degree elevation, Wang counts, stroke mini counts and
+join normals, the count scan) is PyTorch; the per-line work (cubic
+evaluation at uniform t, stroke slot lines, y trim, x clamp, left-edge
+detection, DDA touch counts) is kernel K1 in ``ops/kernels.py``. The f32
+op order follows the JAX package so that counts agree bit for bit with it
+and with the host estimator; ``rsqrt`` is ``1 / sqrt`` (correctly rounded
+on both devices, as XLA lowers it).
 """
 
 from __future__ import annotations
@@ -73,17 +75,150 @@ def expand_by_counts(counts: torch.Tensor, out_size: int):
     return idx, pos < total, total
 
 
+def _sel7(e, v0, v1, v2, v3, v4, v5, v6):
+    """7-way select on integer-valued float e in [0, 6]."""
+    lo = torch.where(e < 0.5, v0, torch.where(e < 1.5, v1,
+                     torch.where(e < 2.5, v2, v3)))
+    hi = torch.where(e < 4.5, v4, torch.where(e < 5.5, v5, v6))
+    return torch.where(e < 3.5, lo, hi)
+
+
+def _rsqrt(x):
+    """1 / sqrt(x), both correctly rounded (``jax.lax.rsqrt`` on XLA-CPU;
+    ``torch.rsqrt`` and CUDA's ``rsqrtf`` are approximate)."""
+    return 1.0 / torch.sqrt(x)
+
+
+def stroke_slot_line(p0x, p0y, p1x, p1y, p2x, p2y, hw, jnx, jny, join,
+                     i, e, m):
+    """Device stroke expansion: line endpoints for output slot (mini i,
+    edge e) of a stroked segment (the in-frame analog of the reference's
+    flatten.wgsl:328-630 stroke path, as a UNION of positively oriented
+    pieces so that nonzero winding composes robustly).
+
+    Mini-line i runs P0 -> P1 (uniform-t chords of the centerline cubic);
+    each mini emits 7 lines: its offset quad (edges e0-e3: left, end,
+    right-reversed, start) and the bevel triangle at the P1 vertex (e4-e6)
+    filling the outer notch against the NEXT mini's quad. The next
+    direction comes from P2 (chord of mini i+1) inside the segment, or
+    from the join normal (jnx, jny), the next segment's first-chord normal,
+    at the segment boundary when ``join`` is set. Degenerate slots
+    (zero-length minis, segment ends without a join, straight
+    continuations) collapse to zero-length lines culled downstream. Kernel
+    K1 computes the same in the same f32 op order."""
+    dx = p1x - p0x
+    dy = p1y - p0y
+    l2 = dx * dx + dy * dy
+    k = hw * _rsqrt(torch.clamp_min(l2, 1e-24))
+    nx = dy * k
+    ny = -dx * k
+    d2x = p2x - p1x
+    d2y = p2y - p1y
+    l2b = d2x * d2x + d2y * d2y
+    kb = hw * _rsqrt(torch.clamp_min(l2b, 1e-24))
+    inner = i < m - 0.5
+    n2x = torch.where(inner, d2y * kb, jnx)
+    n2y = torch.where(inner, -d2x * kb, jny)
+    has_tri = (inner | (join > 0.5)) & (l2 > 1e-24)
+    # gap side of the vertex: sign(cross(d, d_next)) == sign(dot(d, n2))
+    s = torch.where(dx * n2x + dy * n2y >= 0.0, 1.0, -1.0)
+    c1x = p1x + s * nx
+    c1y = p1y + s * ny
+    c2x = p1x + s * n2x
+    c2y = p1y + s * n2y
+    # the corner order flips with the turn side, so the triangle winds as
+    # the quads do
+    pos = s > 0.0
+    t1x = torch.where(has_tri, torch.where(pos, c1x, c2x), p1x)
+    t1y = torch.where(has_tri, torch.where(pos, c1y, c2y), p1y)
+    t2x = torch.where(has_tri, torch.where(pos, c2x, c1x), p1x)
+    t2y = torch.where(has_tri, torch.where(pos, c2y, c1y), p1y)
+    ax = _sel7(e, p0x + nx, p1x + nx, p1x - nx, p0x - nx, p1x, t1x, t2x)
+    ay = _sel7(e, p0y + ny, p1y + ny, p1y - ny, p0y - ny, p1y, t1y, t2y)
+    bx = _sel7(e, p1x + nx, p1x - nx, p0x - nx, p0x + nx, t1x, t2x, p1x)
+    by = _sel7(e, p1y + ny, p1y - ny, p0y - ny, p0y + ny, t1y, t2y, p1y)
+    # zero-length mini: collapse the whole slot group
+    dead = l2 <= 1e-24
+    return (torch.where(dead, p1x, ax), torch.where(dead, p1y, ay),
+            torch.where(dead, p1x, bx), torch.where(dead, p1y, by))
+
+
+STROKE_SLOTS = 7   # lines per stroke mini: 4 quad edges + 3 triangle edges
+
+
+def stroke_mini_counts(cub, hw_dev, tol: float = FLATTEN_TOL,
+                       max_lines: int = MAX_LINES_PER_SEG) -> torch.Tensor:
+    """Subdivision count m per stroked segment, (S,) i32: Wang's bound on
+    the centerline (chord sagitta <= tol) combined with a turning-angle
+    bound keeping the bevel-corner error of the offset polyline under tol
+    (hw * theta^2 / 8 <= tol per vertex; total turning bounded by the
+    control-polygon exterior angles)."""
+    wang = wang_counts(cub, torch.full(cub.shape[:1], 3, dtype=torch.int32,
+                                       device=cub.device), tol, max_lines)
+    v0 = cub[:, 1] - cub[:, 0]
+    v1 = cub[:, 2] - cub[:, 1]
+    v2 = cub[:, 3] - cub[:, 2]
+
+    def ang(u, v):
+        cr = torch.abs(u[:, 0] * v[:, 1] - u[:, 1] * v[:, 0])
+        dt = u[:, 0] * v[:, 0] + u[:, 1] * v[:, 1]
+        ok = (_hypot(u[:, 0], u[:, 1]) > 1e-12) \
+            & (_hypot(v[:, 0], v[:, 1]) > 1e-12)
+        return torch.where(ok, torch.arctan2(cr, dt), 0.0)
+
+    dtheta = ang(v0, v1) + ang(v1, v2)
+    # a tensor numerator: torch turns scalar / tensor into reciprocal *
+    # scalar, which rounds twice
+    num = torch.tensor(8.0 * tol, dtype=torch.float32, device=cub.device)
+    theta_max = torch.sqrt(num / torch.clamp_min(hw_dev, tol))
+    m_turn = torch.ceil(dtheta / theta_max)
+    return torch.maximum(wang, m_turn).clamp(1, max_lines).to(torch.int32)
+
+
+def _stroke_rows(cub, seg_hw, seg_join, max_lines: int):
+    """(counts of stroked segments, is_stroke, (S, 5) f32 stroke columns
+    [hw, jnx, jny, m, join]). The join normal is the NEXT segment's
+    first-chord normal, computed here at segment scale so that the
+    kernel's bevel corner matches the next quad's."""
+    is_stroke = seg_hw > 0.0
+    m = stroke_mini_counts(cub, seg_hw, max_lines=max_lines)
+    m = torch.where(is_stroke, m, torch.zeros_like(m))
+    nxt = torch.roll(cub, -1, dims=0)
+    nxt_m = torch.roll(m, -1).clamp_min(1).to(torch.float32)
+    tq = (1.0 / nxt_m)[:, None]
+    mt = 1.0 - tq
+    pn = (mt * mt * mt * nxt[:, 0] + 3 * mt * mt * tq * nxt[:, 1]
+          + 3 * mt * tq * tq * nxt[:, 2] + tq * tq * tq * nxt[:, 3])
+    ch = pn - nxt[:, 0]
+    l2 = ch[:, 0] * ch[:, 0] + ch[:, 1] * ch[:, 1]
+    kj = seg_hw * _rsqrt(torch.clamp_min(l2, 1e-24))
+    joinf = ((seg_join > 0) & is_stroke & (l2 > 1e-24)).to(torch.float32)
+    cols = torch.stack([seg_hw, joinf * ch[:, 1] * kj,
+                        -joinf * ch[:, 0] * kj, m.to(torch.float32), joinf],
+                       dim=1)
+    return m * STROKE_SLOTS, is_stroke, cols
+
+
 def flatten_fused(seg_pts, seg_kind, seg_path, n_segs, n_lines_cap: int,
-                  width: float, height: float, rpack,
-                  max_lines: int = MAX_LINES_PER_SEG) -> dict:
+                  width: float, height: float, rpack, seg_hw=None,
+                  seg_join=None, max_lines: int = MAX_LINES_PER_SEG) -> dict:
     """Host-compacted, transform-folded segments -> the (16, L) line pack
     [qx0, qy0, qx1, qy1, down, tcount, live, crossing, ev_y0, ev_y1,
-    rect6] (see ``kernels.flatten_lines``). Returns {"linepack",
-    "total_lines", "overflow"}; overflow is 1 when the lines exceed the
-    cap."""
+    rect6] (see ``kernels.flatten_lines``). With ``seg_hw`` (S,) f32
+    half-widths (pre-scaled by the host; 0 for a filled segment) and
+    ``seg_join`` (S,) i32 continuation flags, stroked segments emit 7
+    lines per centerline mini (device stroke expansion). Returns
+    {"linepack", "total_lines", "overflow"}; overflow is 1 when the lines
+    exceed the cap."""
     cub = elevate_to_cubic(seg_pts, seg_kind)
     counts = wang_counts(cub, seg_kind, max_lines=max_lines)
     s = cub.shape[0]
+    srows = []
+    if seg_hw is not None:
+        st_counts, is_stroke, scols = _stroke_rows(cub, seg_hw, seg_join,
+                                                   max_lines)
+        counts = torch.where(is_stroke, st_counts, counts)
+        srows = [scols]
     live_seg = torch.arange(s, dtype=torch.int32, device=cub.device) < n_segs
     counts = torch.where(live_seg, counts, torch.zeros_like(counts))
     incl = torch.cumsum(counts, 0, dtype=torch.int32)
@@ -94,7 +229,7 @@ def flatten_fused(seg_pts, seg_kind, seg_path, n_segs, n_lines_cap: int,
         cub.reshape(s, 8),
         counts.to(torch.float32)[:, None],
         offs.to(torch.float32)[:, None],
-        rpack[pclip]], dim=1).contiguous()                  # (S, 16)
+        rpack[pclip]] + srows, dim=1).contiguous()          # (S, 16 | 21)
     linepack = kernels.flatten_lines(spack, incl, n_lines_cap, width, height)
     return {"linepack": linepack, "total_lines": total,
             "overflow": (total > n_lines_cap).to(torch.int32)}

@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels of the solid-fill frame, each beside its
+"""The hand-written CUDA kernels of the frame, each beside its
 plain PyTorch version (counterpart of ``vello_tpu/ops/pallas_kernels.py``).
 
 - K1 flatten: ``flatten_lines`` (``csrc/flatten.cu``), plain
@@ -10,7 +10,9 @@ plain PyTorch version (counterpart of ``vello_tpu/ops/pallas_kernels.py``).
 - K4 solid composite: ``composite_solid`` (``csrc/composite_solid.cu``),
   plain ``fine.composite_solid_plain``;
 - K5 area coverage: ``coverage_area`` (``csrc/coverage_area.cu``), plain
-  ``fine.coverage_area_plain``.
+  ``fine.coverage_area_plain``;
+- K6 src composite: ``composite_src`` (``csrc/composite_src.cu``), plain
+  ``fine.composite_src_plain``.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel on the current stream or raises; there is no other
@@ -30,15 +32,15 @@ import subprocess
 import torch
 
 from ..encoding.config import TILE_H, TILE_W
-from .fine import (NPX, composite_solid_plain, coverage_area_plain,
-                   msaa_coverage_plain)
+from .fine import (NPX, composite_solid_plain, composite_src_plain,
+                   coverage_area_plain, msaa_coverage_plain)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 LIB = os.path.join(BUILD, "libvello_kernels.so")
 SOURCES = ("flatten.cu", "expand_touches.cu", "msaa_coverage.cu",
-           "composite_solid.cu", "coverage_area.cu")
+           "composite_solid.cu", "coverage_area.cu", "composite_src.cu")
 # --fmad=false: no a*b+c contraction, so the geometry kernels round every
 # op as the plain versions and the JAX package do (their floors must agree
 # with the host estimator); IEEE division and sqrt are nvcc's defaults.
@@ -93,7 +95,7 @@ def _dda_from_q(qx0, qy0, qx1, qy1) -> dict:
 
 
 launches = {"flatten": 0, "expand_touches": 0, "msaa_coverage": 0,
-            "composite_solid": 0, "coverage_area": 0}
+            "composite_solid": 0, "coverage_area": 0, "composite_src": 0}
 
 _lib = None
 
@@ -160,11 +162,12 @@ def _load():
         lib = ctypes.CDLL(build())
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sigs = {
-            "vt_flatten": [P, P, I, P, I, F, F, P],
+            "vt_flatten": [P, P, I, I, P, I, F, F, P],
             "vt_expand_touches": [P, P, I, P, I, P],
             "vt_msaa_coverage": [P, P, P, P, P, P, I, I, I, P, P],
             "vt_composite_solid": [P, P, P, P, P, I, P, P],
             "vt_coverage_area": [P, P, P, P, P, I, I, P, P],
+            "vt_composite_src": [P, P, P, P, I, P, P],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -214,24 +217,30 @@ def _launch(name, fn, *args):
 # K1: flatten (replaces pallas_kernels.flatten_pallas / _flatten_kernel)
 
 def flatten_lines(spack, incl, n_lines: int, width: float, height: float):
-    """spack (S, 16) f32 per segment [8 cubic coords, count, offs, rect6];
+    """spack (S, 16) f32 per segment [8 cubic coords, count, offs, rect6],
+    or (S, 21) with the stroke columns [hw, jnx, jny, m, join] appended;
     incl (S,) i32 inclusive line-count scan. Line slot p belongs to the
     segment with offs <= p < incl and evaluates its cubic at t = sub/n and
-    (sub+1)/n, then trims y to [0, height], clamps x into the viewport and
-    computes its DDA touch count. Slots at or past the total are dead.
-    Returns the (16, L) line pack [qx0, qy0, qx1, qy1, down, tcount, live,
-    crossing, ev_y0, ev_y1, rect6]."""
+    (sub+1)/n, or, for a stroked segment (m > 0), takes slot line
+    (sub // 7, sub % 7) of ``flatten.stroke_slot_line``; then it trims y to
+    [0, height], clamps x into the viewport and computes its DDA touch
+    count. Slots at or past the total are dead. Returns the (16, L) line
+    pack [qx0, qy0, qx1, qy1, down, tcount, live, crossing, ev_y0, ev_y1,
+    rect6]."""
     if _on_cpu(spack, incl):
         return flatten_lines_plain(spack, incl, n_lines, width, height)
     hi = max(width - EDGE_EPS, EDGE_EPS + 1e-3)
     s = incl.shape[0]
-    _check(spack, "spack", torch.float32, (s, 16))
+    cols = spack.shape[1] if spack.dim() == 2 else 0
+    if cols not in (16, 21):
+        raise ValueError(f"spack: {cols} columns, expected 16 or 21")
+    _check(spack, "spack", torch.float32, (s, cols))
     _check(incl, "incl", torch.int32, (s,))
     out = torch.empty((16, n_lines), dtype=torch.float32,
                       device=spack.device)
     if n_lines and s:
-        _launch("flatten", _load().vt_flatten, spack, incl, s, out, n_lines,
-                hi, float(height))
+        _launch("flatten", _load().vt_flatten, spack, incl, s, cols, out,
+                n_lines, hi, float(height))
     return out
 
 
@@ -252,7 +261,7 @@ def flatten_lines_plain(spack, incl, n_lines: int, width: float,
     hi = max(width - EDGE_EPS, EDGE_EPS + 1e-3)
     lo = EDGE_EPS
     r, p = _gather_slots(spack, incl, n_lines)
-    f = r.T                                              # (16, L)
+    f = r.T                                              # (16 | 21, L)
     c0x, c0y, c1x, c1y, c2x, c2y, c3x, c3y = f[0:8]
     n = torch.clamp_min(f[8], 1.0)
     rect = f[10:16]
@@ -266,10 +275,28 @@ def flatten_lines_plain(spack, incl, n_lines: int, width: float,
         return (mt * mt * mt * ca + 3 * mt * mt * t * cb
                 + 3 * mt * t * t * cc + t * t * t * cd)
 
+    if f.shape[0] == 21:
+        from .flatten import STROKE_SLOTS, stroke_slot_line
+        is_st = f[19] > 0.5
+        msafe = torch.clamp_min(f[19], 1.0)
+        si = torch.floor((sub + 0.5) * (1.0 / STROKE_SLOTS))
+        se = sub - STROKE_SLOTS * si
+        t0 = torch.where(is_st, si / msafe, t0)
+        t1 = torch.where(is_st, (si + 1.0) / msafe, t1)
     p0x = ev(t0, c0x, c1x, c2x, c3x)
     p0y = ev(t0, c0y, c1y, c2y, c3y)
     p1x = ev(t1, c0x, c1x, c2x, c3x)
     p1y = ev(t1, c0y, c1y, c2y, c3y)
+    if f.shape[0] == 21:
+        t2 = (si + 2.0) / msafe
+        ax, ay, bx, by = stroke_slot_line(
+            p0x, p0y, p1x, p1y, ev(t2, c0x, c1x, c2x, c3x),
+            ev(t2, c0y, c1y, c2y, c3y), f[16], f[17], f[18], f[20], si, se,
+            msafe)
+        p0x = torch.where(is_st, ax, p0x)
+        p0y = torch.where(is_st, ay, p0y)
+        p1x = torch.where(is_st, bx, p1x)
+        p1y = torch.where(is_st, by, p1y)
     zero = torch.zeros((), dtype=torch.float32, device=spack.device)
     one = torch.ones((), dtype=torch.float32, device=spack.device)
 
@@ -521,4 +548,27 @@ def coverage_area(trow, starts, backdrop, rule, valid, centers: bool):
     if f:
         _launch("coverage_area", _load().vt_coverage_area, trow, starts,
                 backdrop, rule, valid, f, int(centers), out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K6: src composite (replaces fine_composite_solid / _fine_kernel)
+
+def composite_src(src, base_premul, los, his):
+    """Ordered src-over per tile of the premultiplied src rows [los[g],
+    his[g]) onto the premultiplied base (see ``fine.composite_src_plain``).
+    src (F, 4, 256) f32, base_premul (4,) f32, los/his (G,) i32 -> (G, 4,
+    256) f32."""
+    if _on_cpu(src, base_premul, los, his):
+        return composite_src_plain(src, base_premul, los, his)
+    f = src.shape[0]
+    g = los.shape[0]
+    _check(src, "src", torch.float32, (f, 4, NPX))
+    _check(base_premul, "base_premul", torch.float32, (4,))
+    _check(los, "los", torch.int32, (g,))
+    _check(his, "his", torch.int32, (g,))
+    out = torch.empty((g, 4, NPX), dtype=torch.float32, device=src.device)
+    if g:
+        _launch("composite_src", _load().vt_composite_src, src, base_premul,
+                los, his, g, out)
     return out

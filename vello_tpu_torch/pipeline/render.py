@@ -1,13 +1,15 @@
 """The end-to-end render pipeline for one frame on one device (counterpart
-of ``vello_tpu/pipeline/render.py``: the fused-geometry, solid-paint
-branch, with area, centers or msaa coverage).
+of ``vello_tpu/pipeline/render.py``: the fused-geometry flat path, without
+layers, with area, centers or msaa coverage).
 
 Stage order:
-  tile alloc -> flatten (K1) -> touch expansion (K2) -> coarse sort of
-  touches by flat tile -> segment starts, backdrop sums and row prefix ->
-  [area/centers: area coverage of every fragment (K5)] -> live cull and
-  (gtile, path) sort -> [msaa: msaa coverage of the live sorted fragments
-  (K3)] -> occlusion walk starts -> solid composite (K4) -> image.
+  tile alloc -> flatten, with device strokes (K1) -> touch expansion (K2)
+  -> coarse sort of touches by flat tile -> segment starts, backdrop sums
+  and row prefix -> [area/centers: area coverage of every fragment (K5)]
+  -> live cull and (gtile, path) sort -> [msaa: msaa coverage of the live
+  sorted fragments (K3)] -> [non-solid paints: paint evaluation times
+  coverage into src rows] -> occlusion walk starts -> solid composite (K4)
+  or src composite (K6) -> image.
 
 Everything between the kernels is library PyTorch (sort, searchsorted,
 cumsum, cummax, index). Shapes are static per capacity tier and nothing
@@ -53,18 +55,16 @@ class PipelineStatic:
         return (self.height + TILE_H - 1) // TILE_H
 
 
+def solid_only(static: PipelineStatic) -> bool:
+    """Only solid paints: the composite forms color x coverage itself (K4)
+    and no (F, 4, 256) src tensor is materialized."""
+    return not any(k in static.kinds_present for k in (1, 2, 3))
+
+
 def check_supported(static: PipelineStatic) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     if static.aa not in ("area", "centers", "msaa8", "msaa16"):
         raise ValueError(f"unknown antialiasing {static.aa!r}")
-    if any(k != 0 for k in static.kinds_present):
-        raise NotImplementedError(
-            "non-solid paints need kernel K6 (fine_composite_solid) and the "
-            "paint evaluation, not ported yet (ROADMAP item 7)")
-    if static.has_stroke:
-        raise NotImplementedError(
-            "device strokes need the stroke rows of kernel K1, not ported "
-            "yet (ROADMAP item 8)")
     if static.lowp:
         raise NotImplementedError(
             "render_mode='speed' is not ported yet (ROADMAP item 12)")
@@ -89,6 +89,8 @@ def prepare_fragments(bufs: dict, static: PipelineStatic) -> dict:
     ff = flatten_ops.flatten_fused(
         bufs["seg_pts"], bufs["seg_kind"], bufs["seg_path"], bufs["n_segs"],
         caps.n_lines, W, H, tiling.rect_pack(rects),
+        seg_hw=bufs["seg_hw"] if static.has_stroke else None,
+        seg_join=bufs["seg_join"] if static.has_stroke else None,
         max_lines=static.max_lines)
     touches = tiling.make_touches_from_linepack(
         ff["linepack"], ff["total_lines"], caps.n_touches, caps.n_edges,
@@ -168,13 +170,25 @@ def prepare_fragments(bufs: dict, static: PipelineStatic) -> dict:
         coverage_s = coverage[order]
     overflow = (geom_overflow + 4 * touches["overflow"]
                 + 8 * overflow_tiles + overflow_live)
-    return {
-        "g_s": g_s,
-        "tpath_s": tpath_s,
-        "coverage_s": coverage_s,
-        "col_s": bufs["paint_pack"][tpath_s][:, 1:5].contiguous(),
-        "overflow": overflow,
-    }
+    prow = bufs["paint_pack"][tpath_s]
+    out = {"g_s": g_s, "tpath_s": tpath_s, "coverage_s": coverage_s,
+           "overflow": overflow,
+           # opaque solid fragments drive the occlusion walk
+           "opaque_s": (prow[:, 0] == 0.0) & (prow[:, 4] >= 1.0 - 1e-6)}
+    if solid_only(static):
+        out["col_s"] = prow[:, 1:5].contiguous()
+        return out
+    # paint evaluated in sorted order: only per-fragment scalars ride the
+    # permutation, and all the paint fields ride one row gather
+    txy = torch.stack([tx, ty], dim=1)[order]
+    src = fine.eval_paints(
+        (txy[:, 0] * TILE_W).to(torch.float32),
+        (txy[:, 1] * TILE_H).to(torch.float32),
+        prow[:, 0].to(torch.int32), prow[:, 1:5], prow[:, 5:17],
+        prow[:, 17:23], prow[:, 23:31], prow[:, 31:39], bufs["ramps"],
+        bufs["atlas"], frozenset(static.kinds_present))
+    out["src_s"] = (src * coverage_s[:, None, :]).contiguous()
+    return out
 
 
 def occlusion_los(g_s, coverage_s, opaque, n_loc: int, starts_g):
@@ -216,19 +230,23 @@ def tiles_to_image(tiles, width: int, height: int, u8_out: bool = False):
 
 def composite_frame(fr: dict, base_color, *, width: int, height: int,
                     u8_out: bool = False):
-    """Occlusion + solid composite + image assembly from
-    ``prepare_fragments``' outputs. Returns (image, overflow)."""
+    """Occlusion + composite (K4 on solid colors, K6 on src rows) + image
+    assembly from ``prepare_fragments``' outputs. Returns (image,
+    overflow)."""
     n_loc = ((width + TILE_W - 1) // TILE_W) * ((height + TILE_H - 1)
                                                 // TILE_H)
     base_premul = torch.cat([base_color[:3] * base_color[3], base_color[3:4]])
     q = torch.arange(n_loc + 1, dtype=fr["g_s"].dtype,
                      device=fr["g_s"].device)
     starts_g = torch.searchsorted(fr["g_s"], q, side="left", out_int32=True)
-    opaque = fr["col_s"][:, 3] >= 1.0 - 1e-6
-    los, his = occlusion_los(fr["g_s"], fr["coverage_s"], opaque, n_loc,
-                             starts_g)
-    tiles = kernels.composite_solid(fr["coverage_s"], fr["col_s"],
-                                    base_premul.contiguous(), los, his)
+    los, his = occlusion_los(fr["g_s"], fr["coverage_s"], fr["opaque_s"],
+                             n_loc, starts_g)
+    if "col_s" in fr:
+        tiles = kernels.composite_solid(fr["coverage_s"], fr["col_s"],
+                                        base_premul.contiguous(), los, his)
+    else:
+        tiles = kernels.composite_src(fr["src_s"], base_premul.contiguous(),
+                                      los, his)
     return tiles_to_image(tiles, width, height, u8_out), fr["overflow"]
 
 
