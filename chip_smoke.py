@@ -6,7 +6,7 @@ Phases (any failure exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: compile the port's CUDA kernels from vello_tpu_torch/csrc (one
      nvcc per source, all at once);
-  3. the four frame paths at full size, 1600x1600 through
+  3. the five frame paths at full size, 1600x1600 through
      vello_tpu_torch.Renderer(device="cuda").render_u8, each with the
      launch counts set to 0 just before it and read just after:
      a. msaa16: filled_mmark-30k (kernels K1 flatten, K2 touch expansion,
@@ -18,14 +18,22 @@ Phases (any failure exits non-zero):
         K6 src composite);
      d. stroked: mmark-30k in msaa16, device strokes (K1 with its stroke
         rows, K2, K3, K4);
+     e. layered: layered_mmark-30k in msaa16, 24 alpha/blend groups
+        through the layered compositor (K1, K2, K3, K7 once per draws op
+        with a non-empty path range, the pops);
      each with overflow 0, no retry, the host's tier and one launch of each
-     of its kernels; first-frame and warm per-frame times, peak memory;
+     of its kernels (K7: as many as the plan's non-empty draws ops);
+     first-frame and warm per-frame times, peak memory;
   4. each kernel against its plain PyTorch version on the inputs of the
      path named for it in KERNELS (K1 twice: on the fill rows of the msaa16
-     frame and on the stroke rows of the stroked frame), with times for
-     both and the least time the card could take; the paint evaluation's
-     time on the gradient frame's inputs;
-  5. 512x512 frames of all four paths' scenes rendered on the GPU and with
+     frame and on the stroke rows of the stroked frame; K7 on the layered
+     frame's largest draws op, a clone of its buffer for each run, since
+     it works in place), with times for both and the least time the card
+     could take; the paint evaluation's time on the gradient frame's
+     inputs;
+  5. 512x512 frames of all five paths' scenes, and of a scene with every
+     kind of layer (clip chain, pushed clip, luminance and alpha masks,
+     multiply, blur filter, unbalanced push), rendered on the GPU and with
      the port on the CPU, within 1 u8 level.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels, and the one before that the card. ``--profile DIR`` also
@@ -91,6 +99,10 @@ KERNELS = {
                       "vello_tpu_torch/csrc/composite_src.cu",
                       "vello_tpu/ops/pallas_kernels.py:1084",
                       "gradient_image"),
+    "composite_over": ("composite_over", "composite_over",
+                       "composite_over_plain",
+                       "vello_tpu_torch/csrc/composite_over.cu",
+                       "vello_tpu/ops/pallas_kernels.py:1183", "layered"),
 }
 
 # frame path -> (scene, antialiasing, the launch counters of its kernels)
@@ -107,6 +119,9 @@ PATHS = {
     "stroked": ("mmark", "msaa16",
                 ("flatten", "expand_touches", "msaa_coverage",
                  "composite_solid")),
+    "layered": ("layered_mmark", "msaa16",
+                ("flatten", "expand_touches", "msaa_coverage",
+                 "composite_over")),
 }
 
 # f32 operations per unit of work, counted from each kernel's source
@@ -119,6 +134,63 @@ OPS_PER_SAMPLE_TEST = 10     # K3: per touch, pixel and sample
 OPS_PER_COMPOSITE = 18       # K4: per fragment and pixel, 4 channels
 OPS_PER_AREA_TEST = 40       # K5: per touch and pixel, one divide included
 OPS_PER_SRC_COMPOSITE = 9    # K6: per fragment and pixel, 4 channels
+OPS_PER_OVER_COMPOSITE = 9   # K7: per fragment and pixel: 1 - a, then a
+                             # multiply and an add per channel
+
+
+def layer_features(size: float):
+    """Every pop branch of the layered compositor in one scene: a collapsed
+    clip chain, a pushed clip, a luminance mask and an alpha mask (each in
+    a group), a multiply layer, a blur-filtered layer and an unbalanced
+    push, over a gradient backdrop."""
+    import vello_tpu_torch as vt
+    from vello_tpu_torch.kurbo import circle_path, rect_path, star_path
+    from vello_tpu_torch.peniko import stops
+
+    k = size / 128.0
+    s, a, nz, p = vt.Scene(), vt.Affine.identity(), vt.Fill.NON_ZERO, \
+        vt.palette
+    s.fill(nz, a, vt.Gradient.linear((0, 0), (size, size),
+                                     stops(p.NAVY, p.ORANGE)), None,
+           rect_path(0, 0, size, size))
+    s.push_clip_layer(a, circle_path(30 * k, 30 * k, 26 * k))
+    s.push_clip_layer(a, rect_path(8 * k, 10 * k, 50 * k, 44 * k))
+    s.fill(nz, a, vt.Color(0.2, 0.45, 0.8, 0.9), None,
+           rect_path(0, 0, size, size))
+    s.pop_layer()
+    s.pop_layer()
+    s.push_clip_layer(a, star_path(94 * k, 30 * k, 5, 10 * k, 28 * k))
+    s.fill(nz, a, vt.Color(0.7, 0.15, 0.3, 0.8), None,
+           circle_path(86 * k, 30 * k, 16 * k))
+    s.fill(nz, a, vt.Color(0.1, 0.6, 0.35, 0.7), None,
+           circle_path(102 * k, 38 * k, 18 * k))
+    s.pop_layer()
+    s.push_layer(vt.Mix.NORMAL, 1.0, a, None)
+    s.fill(nz, a, vt.Color(0.91, 0.83, 0.18, 1.0), None,
+           rect_path(4 * k, 60 * k, 60 * k, 124 * k))
+    s.push_luminance_mask_layer(0.9, a, rect_path(0, 56 * k, 64 * k, size))
+    s.fill(nz, a, vt.Gradient.radial((32 * k, 92 * k), 30 * k,
+                                     stops(p.WHITE, p.BLACK)), None,
+           circle_path(32 * k, 92 * k, 30 * k))
+    s.pop_layer()
+    s.pop_layer()
+    s.push_layer(vt.Mix.NORMAL, 1.0, a, None)
+    s.fill(nz, a, vt.Color(0.13, 0.73, 0.58, 1.0), None,
+           rect_path(68 * k, 60 * k, 124 * k, 124 * k))
+    s.push_alpha_mask_layer(0.8, a, circle_path(96 * k, 92 * k, 28 * k))
+    s.fill(nz, a, vt.Color(0.5, 0.5, 0.5, 0.6), None,
+           star_path(96 * k, 92 * k, 6, 10 * k, 32 * k))
+    s.pop_layer()
+    s.pop_layer()
+    s.push_layer(vt.Mix.MULTIPLY, 0.85, a, None)
+    s.fill(nz, a, p.LIME, None, circle_path(64 * k, 64 * k, 20 * k))
+    s.pop_layer()
+    s.push_blur_layer(3.0 * k)
+    s.fill(nz, a, p.CYAN, None, star_path(64 * k, 100 * k, 6, 8 * k, 20 * k))
+    s.pop_layer()
+    s.push_layer(vt.Mix.SCREEN, 0.9, a, None)
+    s.fill(nz, a, p.RED, None, circle_path(110 * k, 110 * k, 14 * k))
+    return s
 
 
 def fail(msg: str):
@@ -165,6 +237,38 @@ def capture_calls(module, frame, names):
     return captured
 
 
+def capture_largest_over(kernels, frame):
+    """Run one frame with K7's wrapper wrapped; returns the (args, kwargs)
+    of its draws op that walks the most rows, with a clone of the buffer
+    as it was before that op (the kernel updates it in place)."""
+    best = {"walked": -1}
+    original = kernels.composite_over
+
+    def wrapped(src, dst, los, his):
+        walked = int((his - los).clamp_min(0).sum())
+        if walked > best["walked"]:
+            best.update(walked=walked, args=(src, dst.clone(), los, his))
+        return original(src, dst, los, his)
+
+    kernels.composite_over = wrapped
+    try:
+        frame()
+        torch.cuda.synchronize()
+    finally:
+        kernels.composite_over = original
+    if "args" not in best:
+        fail("the layered frame did not call composite_over")
+    return best["args"], {}
+
+
+def fresh_args(name, kargs):
+    """The arguments of one kernel or plain run: K7 works in place, so each
+    run gets its own copy of the buffer."""
+    if name == "composite_over":
+        return (kargs[0], kargs[1].clone()) + tuple(kargs[2:])
+    return kargs
+
+
 def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts
                if isinstance(t, torch.Tensor))
@@ -193,6 +297,15 @@ def bound(name, args, out):
         f = fidx.long()
         cnt = (starts[f + 1] - starts[f]) * valid[f]
         ops = int(cnt.sum()) * 256 * ns * OPS_PER_SAMPLE_TEST
+    elif name == "composite_over":
+        # in place: the walked src rows read, each tile with a non-empty
+        # walk read and written once, the bounds read
+        src, _, los, his = args
+        walked = int((his - los).clamp_min(0).sum())
+        tiles = int((his > los).sum())
+        nbytes = (_nbytes(los, his)
+                  + (walked + 2 * tiles) * src[0].numel() * src.element_size())
+        ops = walked * 256 * OPS_PER_OVER_COMPOSITE
     elif name.startswith("composite"):
         # a walk reads only its tiles' rows [los, his): the fragments
         # hidden under an opaque full cover, and the rows past the live
@@ -215,9 +328,9 @@ def bound(name, args, out):
 
 def compare(name, got, ref):
     """Hold a kernel's output to its plain version's; returns the max
-    abs error. Bars: integer rows and msaa coverage exact, coordinates
-    rtol 2e-6 / atol 1e-5, composites atol 2e-5, area coverage atol 1e-6
-    (the same op order: expected 0)."""
+    abs error. Bars: integer rows, msaa coverage and the layered draws op
+    exact, coordinates rtol 2e-6 / atol 1e-5, the other composites atol
+    2e-5, area coverage atol 1e-6 (the same op order: expected 0)."""
     got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
     if got.shape != ref.shape or not np.isfinite(got).all():
         fail(f"{name}: shape {got.shape} vs {ref.shape} or non-finite")
@@ -239,6 +352,10 @@ def compare(name, got, ref):
     elif name == "coverage_area":
         if err > 1e-6:
             fail(f"coverage_area: max abs err {err} > 1e-6")
+    elif name == "composite_over":
+        if err != 0.0:
+            fail(f"composite_over: max abs err {err} (expected 0: the same "
+                 f"arithmetic in the same order)")
     elif not np.allclose(got, ref, rtol=0, atol=2e-5):
         fail(f"{name}: max abs err {err} > 2e-5")
     return err
@@ -248,9 +365,17 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
              profile):
     """Drive one frame path at full size; returns (frame thunk, launch
     counts of its first frame)."""
+    from vello_tpu_torch.pipeline import layered
     scene_name, aa, used = PATHS[path]
     params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing=aa)
-    caps = resolve(scene.encoding, params).capacities(params)
+    rs = resolve(scene.encoding, params)
+    caps = rs.capacities(params)
+    expected = {name: int(name in used) for name in kernels.launches}
+    if path == "layered":
+        # K7 launches once per draws op with a non-empty path range
+        expected["composite_over"] = layered.nonempty_draws(
+            layered.build_layer_plan(rs)[1])
+    del rs
     r = Renderer(device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -270,9 +395,11 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
         fail(f"[{path}] image {img.shape} {img.dtype}")
     if img[..., 3].min() != 255 or len(np.unique(img[::8, ::8, 0])) < 16:
         fail(f"[{path}] image is not an opaque, varied frame")
-    for name, n in launches.items():
-        if n != (1 if name in used else 0):
-            fail(f"[{path}] kernel {name} launched {n} times in one frame")
+    if prof["layered"] != (path == "layered"):
+        fail(f"[{path}] layered {prof['layered']}")
+    if launches != expected:
+        fail(f"[{path}] launches {launches} in one frame, expected "
+             f"{expected}")
     frame = r.frame_thunk()
     _, overflow = frame()
     if int(overflow) != 0:
@@ -359,6 +486,10 @@ def main():
     # 4. each kernel against its plain version, on its path's inputs
     captured = {}
     for path in PATHS:
+        if path == "layered":
+            captured["composite_over"] = capture_largest_over(
+                kernels, frames[path])
+            continue
         wrappers = {KERNELS[n][1] for n in KERNELS if KERNELS[n][5] == path}
         calls = capture_calls(kernels, frames[path], sorted(wrappers))
         for name, spec in KERNELS.items():
@@ -372,14 +503,18 @@ def main():
         kargs, kw = captured[name]
         kfn = getattr(kernels, wrapper)
         pfn = getattr(kernels, plain, None) or getattr(fine, plain)
-        got = kfn(*kargs, **kw)
-        ref = pfn(*kargs, **kw)
+        got = kfn(*fresh_args(name, kargs), **kw)
+        ref = pfn(*fresh_args(name, kargs), **kw)
         torch.cuda.synchronize()
         err = compare(name, got, ref)
         del got, ref
-        ms = cuda_ms(lambda: kfn(*kargs, **kw), 20)
-        plain_ms = cuda_ms(lambda: pfn(*kargs, **kw), 3)
-        bound_ms, bound_by = bound(name, kargs, kfn(*kargs, **kw))
+        targs = fresh_args(name, kargs)
+        ms = cuda_ms(lambda: kfn(*targs, **kw), 20)
+        pargs = fresh_args(name, kargs)
+        plain_ms = cuda_ms(lambda: pfn(*pargs, **kw), 3)
+        del targs, pargs
+        bound_ms, bound_by = bound(name, kargs,
+                                   kfn(*fresh_args(name, kargs), **kw))
         launches = path_launches[path][counter]
         print(f"{name}: max_abs_err {err} kernel_ms {ms:.4f} plain_ms "
               f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
@@ -399,8 +534,12 @@ def main():
     del frames, captured, pargs, pkw
 
     # 5. smaller frames: GPU kernels against the port's CPU plain path
-    for path, (scene_name, aa, _) in PATHS.items():
-        small = getattr(test_scenes, scene_name)(4, 512.0)
+    checks = [(path, scene_name, aa, getattr(test_scenes, scene_name)(
+        1 if path == "layered" else 4, 512.0))
+        for path, (scene_name, aa, _) in PATHS.items()]
+    checks.append(("layer_features", "layer_features", "msaa16",
+                   layer_features(512.0)))
+    for path, scene_name, aa, small in checks:
         sp = RenderParams(512, 512, base_color=BASE, antialiasing=aa)
         gpu_img = Renderer(device="cuda").render_u8(small, sp)
         cpu_img = Renderer(device="cpu").render_u8(small, sp)

@@ -9,7 +9,8 @@ import torch
 
 from vello_tpu_torch import Renderer, RenderParams, resolve
 from vello_tpu_torch.ops import fine, kernels
-from vello_tpu_torch.scenes.test_scenes import (filled_mmark,
+from vello_tpu_torch.pipeline import layered
+from vello_tpu_torch.scenes.test_scenes import (filled_mmark, layered_mmark,
                                                 mixed_paint_mmark, mmark)
 
 pytestmark = pytest.mark.cuda
@@ -156,3 +157,51 @@ def test_stroke_rows_kernel_matches_plain(cuda):
     got = kernels.flatten_lines(*captured["args"])
     ref = kernels.flatten_lines_plain(*captured["args"])
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_over_composite_kernel_matches_plain(cuda):
+    """K7 against its plain version on random walks, in place: the same
+    arithmetic in the same order, so the bar is equality; tiles with an
+    empty walk keep their values."""
+    rng = np.random.default_rng(4)
+    f, g = 3000, 97
+    a = rng.uniform(size=(f, 1, 256))
+    a[rng.uniform(size=f) < 0.2] = 1.0
+    src = torch.from_numpy(np.concatenate(
+        [rng.uniform(size=(f, 3, 256)) * a, a], axis=1).astype(np.float32))
+    bounds = np.sort(rng.integers(0, f + 1, g + 1)).astype(np.int32)
+    los, his = bounds[:-1].copy(), bounds[1:].copy()
+    his[::5] = los[::5]                          # some empty walks
+    buf = torch.from_numpy(rng.uniform(size=(g, 4, 256)).astype(np.float32))
+    args = (src.to(cuda), torch.from_numpy(los).to(cuda),
+            torch.from_numpy(his).to(cuda))
+    got = buf.to(cuda)
+    ref = buf.to(cuda)
+    kernels.reset_launches()
+    out = kernels.composite_over(args[0], got, *args[1:])
+    assert out is got and kernels.launches["composite_over"] == 1
+    fine.composite_over_plain(args[0], ref, *args[1:])
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    torch.testing.assert_close(got[::5].cpu(), buf[::5], rtol=0, atol=0)
+
+
+def test_gpu_layered_frame_equals_cpu_frame(cuda):
+    """layered_mmark at 256x256 in msaa16: K1, K2 and K3 once, K7 once per
+    draws op with a non-empty path range, K4 and K6 not at all; the GPU
+    frame equals the CPU frame."""
+    params = RenderParams(256, 256, base_color=(0.1, 0.1, 0.1, 1.0),
+                          antialiasing="msaa16")
+    rs = resolve(layered_mmark(2, 256.0).encoding, params)
+    n_draws = layered.nonempty_draws(layered.build_layer_plan(rs)[1])
+    assert n_draws == 24
+    kernels.reset_launches()
+    r = Renderer(device=cuda)
+    gpu = r.render_resolved(rs, params, out="rgba8")
+    assert r.last_profile["layered"]
+    counts = dict(kernels.launches)
+    want = {k: 0 for k in counts}
+    want.update(flatten=1, expand_touches=1, msaa_coverage=1,
+                composite_over=n_draws)
+    assert counts == want, counts
+    cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
+    np.testing.assert_array_equal(gpu, cpu)

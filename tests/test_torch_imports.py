@@ -26,9 +26,13 @@ for name in names:
     importlib.import_module(name)
 from vello_tpu_torch.scenes.test_scenes import filled_mmark
 filled_mmark(1, 64.0)
-from vello_tpu_torch.ops import blur, paint
+from vello_tpu_torch.ops import blend, blur, filters, paint
+from vello_tpu_torch.pipeline import layered
 assert callable(blur.blurred_rounded_rect_coverage)
 assert callable(paint.radial_t)
+assert callable(blend.blend_mix_compose_dyn)
+assert callable(filters.apply_filter_dyn)
+assert callable(layered.render_frame_layered)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "vello_tpu"))
 print("MODULES", len(names), "FOREIGN", len(loaded), loaded[:5])
@@ -130,6 +134,16 @@ def test_cpu_tensors_take_plain_versions():
                                 1024, 64.0, 64.0)
     assert slp.shape == (16, 1024)
     assert slp[6, :7].sum() > 0 and slp[6, 7:].sum() == 0    # live rows
+    # K7 updates its buffer in place: tile 0 takes its walk, the tiles with
+    # an empty walk keep their values
+    buf = torch.rand(f, 4, 256)
+    before = buf.clone()
+    his_one = los.clone()
+    his_one[0] = his[0]
+    assert his_one[0] > los[0]
+    out = kernels.composite_over(src, buf, los, his_one)
+    assert out is buf and torch.equal(buf[1:], before[1:])
+    assert not torch.equal(buf[0], before[0])
     assert all(v == 0 for v in kernels.launches.values()), kernels.launches
 
 

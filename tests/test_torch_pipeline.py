@@ -352,7 +352,9 @@ def test_render_and_frame_thunk():
 
 
 def test_unported_features_raise():
-    """Layers (kernel K7) and render_mode='speed' still raise."""
+    """Text and render_mode='speed' still raise, the latter on the layered
+    path too (layers render since the layered compositor and kernel K7
+    were ported: tests/test_torch_layers.py)."""
     params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing="msaa16")
     pkg = vello_tpu_torch
     scene = pkg.Scene()
@@ -361,8 +363,9 @@ def test_unported_features_raise():
     scene.fill(pkg.Fill.NON_ZERO, pkg.Affine.identity(), pkg.palette.RED,
                None, pkg.kurbo.circle_path(64, 64, 30))
     scene.pop_layer()
-    with pytest.raises(NotImplementedError, match="K7"):
-        Renderer(device="cpu").render_u8(scene, params)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+        scene.draw_text("x", 8, 20, 14, pkg.palette.WHITE)
     speed = dataclasses.replace(params, render_mode="speed")
-    with pytest.raises(NotImplementedError, match="speed"):
-        Renderer(device="cpu").render_u8(mmark(pkg), speed)
+    for s in (mmark(pkg), scene):
+        with pytest.raises(NotImplementedError, match="speed"):
+            Renderer(device="cpu").render_u8(s, speed)

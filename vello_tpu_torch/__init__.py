@@ -6,11 +6,12 @@ package's own copy of ``vello_tpu``'s numpy/C++ host modules, with the same
 module names; the device frame is PyTorch plus the kernels in ``csrc/``.
 This package imports neither JAX nor ``vello_tpu``.
 
-Supported so far: scenes without layers, filled or device-stroked, with
-solid, gradient (linear, radial, sweep), image (nearest, bilinear,
-bicubic) and blurred-rect paints, and area (the default), centers, msaa8
-or msaa16 antialiasing. A CPU tensor runs each kernel's plain PyTorch
-version; a CUDA tensor runs the kernel (built with ``nvcc`` at first use).
+Supported so far: fills and device strokes with solid, gradient (linear,
+radial, sweep), image (nearest, bilinear, bicubic) and blurred-rect
+paints; layers (clips, group alpha, mix and compose modes, luminance and
+alpha masks, layer filters); area (the default), centers, msaa8 or msaa16
+antialiasing. A CPU tensor runs each kernel's plain PyTorch version; a
+CUDA tensor runs the kernel (built with ``nvcc`` at first use).
 """
 
 from . import kurbo, peniko

@@ -17,6 +17,7 @@ import torch
 
 from ..encoding.config import Capacities, RenderParams, next_size
 from ..encoding.resolve import PAINT_IMAGE, ResolvedScene, resolve
+from ..pipeline import layered
 from ..pipeline.render import PipelineStatic, get_pipeline
 from ..scene import Scene
 
@@ -165,18 +166,22 @@ class Renderer:
     def render_resolved(self, rs: ResolvedScene, params: RenderParams,
                         out: str = "f32") -> np.ndarray:
         t_start = time.time()
-        if any(k in (3, 4) for k in rs.draw_kind):
-            raise NotImplementedError(
-                "scenes with layers need the layered compositor and kernel "
-                "K7 (fine_composite_over), not ported yet (ROADMAP item 10)")
         caps = rs.capacities(params)
         kinds = set(int(k) for k in rs.paint_kind)
         if PAINT_IMAGE in kinds:
             # the image sampling modes present, as 10 + quality markers
             quals = rs.image_rec[rs.paint_kind == PAINT_IMAGE, 6]
             kinds |= {10 + int(q) for q in set(quals.tolist())}
-        # solid colors only: paint_pack shrinks to 8 columns
-        paint8 = kinds <= {0}
+        has_layers = any(k in (3, 4) for k in rs.draw_kind)
+        if has_layers:
+            # the plan is host data, built once per resolved scene
+            plan = layered.build_layer_plan(rs)[1]
+            if "path_clipalpha" in plan:
+                plan = dict(plan, path_clipalpha=torch.from_numpy(
+                    plan["path_clipalpha"]).to(self.device))
+        # solid colors only: paint_pack shrinks to 8 columns (layers read
+        # its column 39, the clip-path flag)
+        paint8 = kinds <= {0} and not has_layers
         kinds = tuple(sorted(kinds))
         # live-fragment cap: an exact host upper bound plus a small margin
         # for f32 tile-assignment jitter; bit 16 doubles it on a retry
@@ -200,7 +205,11 @@ class Renderer:
                 n_live=0 if n_live >= caps.n_path_tiles else n_live,
                 has_edge=has_edge, has_stroke=bool(rs.has_stroke),
                 max_lines=int(rs.max_lines))
-            fn = get_pipeline(static, u8_out=(out == "rgba8"))
+            if has_layers:
+                fn = layered.get_layered_pipeline(static, plan,
+                                                  u8_out=(out == "rgba8"))
+            else:
+                fn = get_pipeline(static, u8_out=(out == "rgba8"))
             bufs = self._device_bufs(rs, caps, params, paint8)
             frame = (lambda f=fn, b=bufs: f(b))
             self._frame = frame
@@ -212,7 +221,7 @@ class Renderer:
                     "wall_s": time.time() - t_start,
                     "tier": dict(zip(_TIER_KEYS, caps.key())),
                     "retries": attempt,
-                    "layered": False,
+                    "layered": has_layers,
                     "n_live": static.n_live,
                     "est": {"lines": rs.est_lines,
                             "touches": rs.est_touches,

@@ -235,6 +235,26 @@ def composite_src_plain(src, base_premul, los, his):
     return dst
 
 
+def composite_over_plain(src, dst, los, his):
+    """Plain version of kernel K7: per tile g, the ordered src-over of the
+    premultiplied src rows [los[g], his[g]) onto the tile's current value
+    in ``dst``, dst = src + (1 - src.a) * dst, IN PLACE (the layered
+    draws op; tiles with an empty walk are neither read nor written).
+    src (F, 4, 256), dst (G, 4, 256). Returns dst."""
+    n = (his - los).clamp_min(0)
+    tiles = torch.nonzero(n > 0).flatten()
+    if tiles.numel() == 0:
+        return dst
+    d = dst[tiles]
+    lo, n = los[tiles].long(), n[tiles]
+    for k in range(int(n.max())):
+        s = src[(lo + k).clamp_max(src.shape[0] - 1)]
+        upd = s + (1.0 - s[:, 3:4]) * d
+        d = torch.where((k < n)[:, None, None], upd, d)
+    dst[tiles] = d
+    return dst
+
+
 def _clip(x, lo, hi):
     """jnp.clip with tensor bounds: min(max(x, lo), hi)."""
     return torch.minimum(torch.maximum(x, lo), hi)

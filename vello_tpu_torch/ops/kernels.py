@@ -12,7 +12,9 @@ plain PyTorch version (counterpart of ``vello_tpu/ops/pallas_kernels.py``).
 - K5 area coverage: ``coverage_area`` (``csrc/coverage_area.cu``), plain
   ``fine.coverage_area_plain``;
 - K6 src composite: ``composite_src`` (``csrc/composite_src.cu``), plain
-  ``fine.composite_src_plain``.
+  ``fine.composite_src_plain``;
+- K7 layered draws op: ``composite_over`` (``csrc/composite_over.cu``),
+  plain ``fine.composite_over_plain``.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel on the current stream or raises; there is no other
@@ -32,15 +34,17 @@ import subprocess
 import torch
 
 from ..encoding.config import TILE_H, TILE_W
-from .fine import (NPX, composite_solid_plain, composite_src_plain,
-                   coverage_area_plain, msaa_coverage_plain)
+from .fine import (NPX, composite_over_plain, composite_solid_plain,
+                   composite_src_plain, coverage_area_plain,
+                   msaa_coverage_plain)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 LIB = os.path.join(BUILD, "libvello_kernels.so")
 SOURCES = ("flatten.cu", "expand_touches.cu", "msaa_coverage.cu",
-           "composite_solid.cu", "coverage_area.cu", "composite_src.cu")
+           "composite_solid.cu", "coverage_area.cu", "composite_src.cu",
+           "composite_over.cu")
 # --fmad=false: no a*b+c contraction, so the geometry kernels round every
 # op as the plain versions and the JAX package do (their floors must agree
 # with the host estimator); IEEE division and sqrt are nvcc's defaults.
@@ -95,7 +99,8 @@ def _dda_from_q(qx0, qy0, qx1, qy1) -> dict:
 
 
 launches = {"flatten": 0, "expand_touches": 0, "msaa_coverage": 0,
-            "composite_solid": 0, "coverage_area": 0, "composite_src": 0}
+            "composite_solid": 0, "coverage_area": 0, "composite_src": 0,
+            "composite_over": 0}
 
 _lib = None
 
@@ -168,6 +173,7 @@ def _load():
             "vt_composite_solid": [P, P, P, P, P, I, P, P],
             "vt_coverage_area": [P, P, P, P, P, I, I, P, P],
             "vt_composite_src": [P, P, P, P, I, P, P],
+            "vt_composite_over": [P, P, P, I, P, P],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -572,3 +578,25 @@ def composite_src(src, base_premul, los, his):
         _launch("composite_src", _load().vt_composite_src, src, base_premul,
                 los, his, g, out)
     return out
+
+
+# --------------------------------------------------------------------------
+# K7: layered draws op (replaces fine_composite_over / _fine_kernel_over)
+
+def composite_over(src, dst, los, his):
+    """Ordered src-over per tile of the premultiplied src rows [los[g],
+    his[g]) onto the tile's current value in ``dst``, IN PLACE (see
+    ``fine.composite_over_plain``): tiles with an empty walk are neither
+    read nor written. src (F, 4, 256) f32, dst (G, 4, 256) f32, los/his
+    (G,) i32. Returns dst."""
+    if _on_cpu(src, dst, los, his):
+        return composite_over_plain(src, dst, los, his)
+    g = los.shape[0]
+    _check(src, "src", torch.float32, (src.shape[0], 4, NPX))
+    _check(dst, "dst", torch.float32, (g, 4, NPX))
+    _check(los, "los", torch.int32, (g,))
+    _check(his, "his", torch.int32, (g,))
+    if g:
+        _launch("composite_over", _load().vt_composite_over, src, los, his,
+                g, dst)
+    return dst

@@ -29,3 +29,20 @@ def segment_sum_from_starts(vals: torch.Tensor, starts: torch.Tensor
     at = torch.where(starts > 0, c[idx], torch.zeros((), dtype=c.dtype,
                                                      device=c.device))
     return at[1:] - at[:-1]
+
+
+def lookup_sorted(keys: torch.Tensor, queries: torch.Tensor):
+    """For each query, the index of the last element of ascending ``keys``
+    equal to it: (idx (Q,) int64 clamped into range, found (Q,) bool).
+    Keys and queries are int64, so there is no 2^30 wrap as in the JAX
+    package's 3-sort merge; a negative query is never found."""
+    idx = torch.searchsorted(keys, queries, side="right") - 1
+    idx_c = idx.clamp(0, keys.shape[0] - 1)
+    found = (idx >= 0) & (keys[idx_c] == queries)
+    return idx_c, found
+
+
+def rank_sorted(keys: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+    """#keys strictly less than each query (the side='left' insertion
+    index), (Q,) i32, over int64 keys and queries."""
+    return torch.searchsorted(keys, queries, side="left", out_int32=True)

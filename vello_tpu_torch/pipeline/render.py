@@ -1,6 +1,7 @@
 """The end-to-end render pipeline for one frame on one device (counterpart
-of ``vello_tpu/pipeline/render.py``: the fused-geometry flat path, without
-layers, with area, centers or msaa coverage).
+of ``vello_tpu/pipeline/render.py``: the fused-geometry flat path, with
+area, centers or msaa coverage; ``pipeline/layered.py`` composites scenes
+with layers from the same fragments).
 
 Stage order:
   tile alloc -> flatten, with device strokes (K1) -> touch expansion (K2)
@@ -70,9 +71,16 @@ def check_supported(static: PipelineStatic) -> None:
             "render_mode='speed' is not ported yet (ROADMAP item 12)")
 
 
-def prepare_fragments(bufs: dict, static: PipelineStatic) -> dict:
+def prepare_fragments(bufs: dict, static: PipelineStatic,
+                      keep_clip_paths: bool = False) -> dict:
     """Geometry + coverage: the live fragments sorted by (gtile, path),
-    with their coverage rows and colors, and the overflow word."""
+    with their coverage rows and colors, and the overflow word.
+
+    ``keep_clip_paths`` (the layered compositor): clip-path fragments stay
+    valid, with their coverage, and the src rows are always materialized,
+    zero on clip rows. (The JAX package also carries the src alpha as
+    ``alpha_s`` for its transmittance composite; the port's walks read it
+    from the src rows.)"""
     check_supported(static)
     caps = Capacities(*static.caps_key)
     dev = bufs["path_rect"].device
@@ -117,7 +125,9 @@ def prepare_fragments(bufs: dict, static: PipelineStatic) -> dict:
     is_clip = bufs["path_kind"][tp] != 0
     base = rects["base"][tp]
     stride = rects["stride"][tp].clamp_min(1)
-    tvalid = (t < rects["total_tiles"]) & ~is_clip
+    tvalid = t < rects["total_tiles"]
+    if not keep_clip_paths:
+        tvalid = tvalid & ~is_clip
     rel = t - base
     tx = rects["tx0"][tp] + rel % stride
     ty = rects["ty0"][tp] + rel // stride
@@ -175,7 +185,7 @@ def prepare_fragments(bufs: dict, static: PipelineStatic) -> dict:
            "overflow": overflow,
            # opaque solid fragments drive the occlusion walk
            "opaque_s": (prow[:, 0] == 0.0) & (prow[:, 4] >= 1.0 - 1e-6)}
-    if solid_only(static):
+    if solid_only(static) and not keep_clip_paths:
         out["col_s"] = prow[:, 1:5].contiguous()
         return out
     # paint evaluated in sorted order: only per-fragment scalars ride the
@@ -187,6 +197,12 @@ def prepare_fragments(bufs: dict, static: PipelineStatic) -> dict:
         prow[:, 0].to(torch.int32), prow[:, 1:5], prow[:, 5:17],
         prow[:, 17:23], prow[:, 23:31], prow[:, 31:39], bufs["ramps"],
         bufs["atlas"], frozenset(static.kinds_present))
+    if keep_clip_paths:
+        # clip rows composite as src = 0: zero their coverage in the
+        # product (paint * 0 is the 0 the JAX package writes after it)
+        is_clip_s = prow[:, 39] != 0
+        out["opaque_s"] = out["opaque_s"] & ~is_clip_s
+        coverage_s = torch.where(is_clip_s[:, None], 0.0, coverage_s)
     out["src_s"] = (src * coverage_s[:, None, :]).contiguous()
     return out
 
