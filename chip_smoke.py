@@ -6,7 +6,7 @@ Phases (any failure exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: compile the port's CUDA kernels from vello_tpu_torch/csrc (one
      nvcc per source, all at once);
-  3. the five frame paths at full size, 1600x1600 through
+  3. the six frame paths at full size, 1600x1600 through
      vello_tpu_torch.Renderer(device="cuda").render_u8, each with the
      launch counts set to 0 just before it and read just after:
      a. msaa16: filled_mmark-30k (kernels K1 flatten, K2 touch expansion,
@@ -21,17 +21,26 @@ Phases (any failure exits non-zero):
      e. layered: layered_mmark-30k in msaa16, 24 alpha/blend groups
         through the layered compositor (K1, K2, K3, K7 once per draws op
         with a non-empty path range, the pops);
+     f. layered_unrolled: blend_grid (16 cells, 15 of them clipped blend
+        layers) in msaa16 with VELLO_TPU_UNROLLED_LAYERS=1, the unrolled
+        formulation (K1, K2, K3, K7 per draws op, K8 column cumsum once per
+        clipped push); its frame must equal, byte for byte, the scan
+        formulation's frame of the same scene (msaa clip coverage prefixes
+        are exact in f32);
      each with overflow 0, no retry, the host's tier and one launch of each
-     of its kernels (K7: as many as the plan's non-empty draws ops);
-     first-frame and warm per-frame times, peak memory;
+     of its kernels (K7: as many as the plan's non-empty draws ops; K8: as
+     many as its clipped pushes); first-frame and warm per-frame times, peak
+     memory;
   4. each kernel against its plain PyTorch version on the inputs of the
      path named for it in KERNELS (K1 twice: on the fill rows of the msaa16
      frame and on the stroke rows of the stroked frame; K7 on the layered
      frame's largest draws op, a clone of its buffer for each run, since
-     it works in place), with times for both and the least time the card
-     could take; the paint evaluation's time on the gradient frame's
-     inputs;
-  5. 512x512 frames of all five paths' scenes, and of a scene with every
+     it works in place; K8 twice: on the unrolled frame's largest clipped
+     push, and on a seeded (n_live, 256) input at the layered cell's live
+     tier, uniform and in multiples of 1/16), with times for both, the
+     least time the card could take and, for K8, torch.cumsum's time; the
+     paint evaluation's time on the gradient frame's inputs;
+  5. 512x512 frames of all six paths' scenes, and of a scene with every
      kind of layer (clip chain, pushed clip, luminance and alpha masks,
      multiply, blur filter, unbalanced push), rendered on the GPU and with
      the port on the CPU, within 1 u8 level.
@@ -45,6 +54,7 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -103,6 +113,13 @@ KERNELS = {
                        "composite_over_plain",
                        "vello_tpu_torch/csrc/composite_over.cu",
                        "vello_tpu/ops/pallas_kernels.py:1183", "layered"),
+    "cumsum": ("cumsum", "cumsum0", "cumsum0_plain",
+               "vello_tpu_torch/csrc/cumsum.cu",
+               "vello_tpu/ops/pallas_kernels.py:496", "layered_unrolled"),
+    "cumsum_layered_tier": ("cumsum", "cumsum0", "cumsum0_plain",
+                            "vello_tpu_torch/csrc/cumsum.cu",
+                            "vello_tpu/ops/pallas_kernels.py:496",
+                            "layered_unrolled"),
 }
 
 # frame path -> (scene, antialiasing, the launch counters of its kernels)
@@ -122,7 +139,11 @@ PATHS = {
     "layered": ("layered_mmark", "msaa16",
                 ("flatten", "expand_touches", "msaa_coverage",
                  "composite_over")),
+    "layered_unrolled": ("blend_grid", "msaa16",
+                         ("flatten", "expand_touches", "msaa_coverage",
+                          "composite_over", "cumsum")),
 }
+UNROLLED = "VELLO_TPU_UNROLLED_LAYERS"
 
 # f32 operations per unit of work, counted from each kernel's source
 # (compares, selects and integer steps count as one each)
@@ -193,6 +214,29 @@ def layer_features(size: float):
     return s
 
 
+def make_scene(test_scenes, name: str, complexity: int, size: float):
+    """A scene of vello_tpu_torch.scenes.test_scenes at ``size``; blend_grid
+    has no complexity."""
+    if name == "blend_grid":
+        return test_scenes.blend_grid(size)
+    return getattr(test_scenes, name)(complexity, size)
+
+
+@contextlib.contextmanager
+def formulation(path: str):
+    """VELLO_TPU_UNROLLED_LAYERS=1 for the layered_unrolled path, unset for
+    every other; restored after."""
+    old = os.environ.pop(UNROLLED, None)
+    if path == "layered_unrolled":
+        os.environ[UNROLLED] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(UNROLLED, None)
+        if old is not None:
+            os.environ[UNROLLED] = old
+
+
 def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
@@ -261,6 +305,32 @@ def capture_largest_over(kernels, frame):
     return best["args"], {}
 
 
+def capture_largest_cumsum(kernels, frame):
+    """Run one frame with K8's wrapper wrapped; returns the (args, kwargs)
+    of its call on the clipped push with the most non-zero coverage
+    rows."""
+    best = {"rows": -1}
+    original = kernels.cumsum0
+
+    def wrapped(x):
+        rows = int((x != 0).any(dim=1).sum())
+        if rows > best["rows"]:
+            best.update(rows=rows, args=(x,))
+        return original(x)
+
+    kernels.cumsum0 = wrapped
+    try:
+        frame()
+        torch.cuda.synchronize()
+    finally:
+        kernels.cumsum0 = original
+    if "args" not in best:
+        fail("the unrolled layered frame did not call cumsum0")
+    print(f"cumsum: the largest clipped push has {best['rows']} non-zero "
+          f"rows of {best['args'][0].shape[0]}")
+    return best["args"], {}
+
+
 def fresh_args(name, kargs):
     """The arguments of one kernel or plain run: K7 works in place, so each
     run gets its own copy of the buffer."""
@@ -306,6 +376,8 @@ def bound(name, args, out):
         nbytes = (_nbytes(los, his)
                   + (walked + 2 * tiles) * src[0].numel() * src.element_size())
         ops = walked * 256 * OPS_PER_OVER_COMPOSITE
+    elif name.startswith("cumsum"):
+        ops = args[0].numel()            # one add per element
     elif name.startswith("composite"):
         # a walk reads only its tiles' rows [los, his): the fragments
         # hidden under an opaque full cover, and the rows past the live
@@ -330,7 +402,10 @@ def compare(name, got, ref):
     """Hold a kernel's output to its plain version's; returns the max
     abs error. Bars: integer rows, msaa coverage and the layered draws op
     exact, coordinates rtol 2e-6 / atol 1e-5, the other composites atol
-    2e-5, area coverage atol 1e-6 (the same op order: expected 0)."""
+    2e-5, area coverage atol 1e-6 (the same op order: expected 0); K8 exact
+    on msaa clip coverage (multiples of 1/16: every prefix is exact) and
+    within 2e-6 of the largest prefix on uniform values (both sum in f64
+    and round once, in different orders)."""
     got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
     if got.shape != ref.shape or not np.isfinite(got).all():
         fail(f"{name}: shape {got.shape} vs {ref.shape} or non-finite")
@@ -352,6 +427,14 @@ def compare(name, got, ref):
     elif name == "coverage_area":
         if err > 1e-6:
             fail(f"coverage_area: max abs err {err} > 1e-6")
+    elif name == "cumsum":
+        if err != 0.0:
+            fail(f"cumsum: max abs err {err} on msaa clip coverage "
+                 f"(expected 0: every prefix is exact)")
+    elif name == "cumsum_layered_tier":
+        bar = 2e-6 * float(np.abs(ref).max())
+        if err > bar:
+            fail(f"cumsum_layered_tier: max abs err {err} > {bar}")
     elif name == "composite_over":
         if err != 0.0:
             fail(f"composite_over: max abs err {err} (expected 0: the same "
@@ -364,26 +447,30 @@ def compare(name, got, ref):
 def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
              profile):
     """Drive one frame path at full size; returns (frame thunk, launch
-    counts of its first frame)."""
+    counts of its first frame, its u8 image, its profile)."""
     from vello_tpu_torch.pipeline import layered
     scene_name, aa, used = PATHS[path]
     params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing=aa)
     rs = resolve(scene.encoding, params)
     caps = rs.capacities(params)
     expected = {name: int(name in used) for name in kernels.launches}
-    if path == "layered":
-        # K7 launches once per draws op with a non-empty path range
-        expected["composite_over"] = layered.nonempty_draws(
-            layered.build_layer_plan(rs)[1])
+    if path.startswith("layered"):
+        # K7 launches once per draws op with a non-empty path range, K8
+        # once per clipped push of the unrolled formulation
+        plan = layered.build_layer_plan(rs)[1]
+        expected["composite_over"] = layered.nonempty_draws(plan)
+        if "cumsum" in used:
+            expected["cumsum"] = layered.clipped_pushes(plan)
     del rs
     r = Renderer(device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    img = r.render_u8(scene, params)
-    first_s = time.perf_counter() - t0
-    launches = dict(kernels.launches)
+    with formulation(path):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        img = r.render_u8(scene, params)
+        first_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
     prof = r.last_profile
     print(f"[{path}] first_frame_s {first_s:.4f} tier {prof['tier']} retries "
           f"{prof['retries']} n_live {prof['n_live']} launches {launches}")
@@ -395,7 +482,7 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
         fail(f"[{path}] image {img.shape} {img.dtype}")
     if img[..., 3].min() != 255 or len(np.unique(img[::8, ::8, 0])) < 16:
         fail(f"[{path}] image is not an opaque, varied frame")
-    if prof["layered"] != (path == "layered"):
+    if prof["layered"] != path.startswith("layered"):
         fail(f"[{path}] layered {prof['layered']}")
     if launches != expected:
         fail(f"[{path}] launches {launches} in one frame, expected "
@@ -438,7 +525,7 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
         print(f"[{path}] device_ms_per_frame {device_ms:.4f} busy share "
               f"{device_ms / statistics.median(times):.3f}")
         print(table[:6000])
-    return frame, launches
+    return frame, launches, img, prof
 
 
 def main():
@@ -474,14 +561,40 @@ def main():
           f"{len(kernels.SOURCES)} kernels in parallel)")
 
     # 3. the frame paths at full size
-    scenes = {name: getattr(test_scenes, name)(COMPLEXITY, float(SIZE))
+    scenes = {name: make_scene(test_scenes, name, COMPLEXITY, float(SIZE))
               for name in {scene for scene, _, _ in PATHS.values()}}
-    frames, path_launches = {}, {}
+    frames, path_launches, images, profiles = {}, {}, {}, {}
     for path, (scene_name, _, _) in PATHS.items():
-        frames[path], path_launches[path] = run_path(
-            path, kernels, Renderer, RenderParams, resolve,
-            scenes[scene_name], args.profile)
-    del scenes
+        (frames[path], path_launches[path], images[path],
+         profiles[path]) = run_path(path, kernels, Renderer, RenderParams,
+                                    resolve, scenes[scene_name],
+                                    args.profile)
+    # the unrolled formulation against the scan formulation, same scene:
+    # the same bytes, and the scan frame's warm time beside the unrolled's
+    scene_name, aa, _ = PATHS["layered_unrolled"]
+    r_scan = Renderer(device="cuda")
+    with formulation("layered"):
+        scan_img = r_scan.render_u8(
+            scenes[scene_name], RenderParams(SIZE, SIZE, base_color=BASE,
+                                             antialiasing=aa))
+    differ = int((scan_img != images["layered_unrolled"]).sum())
+    print(f"[layered_unrolled] bytes differing from the scan frame of "
+          f"{scene_name}: {differ} of {scan_img.size}")
+    if differ:
+        fail(f"layered_unrolled: {differ} bytes differ from the scan frame")
+    scan_frame = r_scan.frame_thunk()
+    scan_frame()
+    times = []
+    for _ in range(WARM_FRAMES):
+        t0 = time.perf_counter()
+        scan_frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"[layered_unrolled] its scan frame: warm_ms_per_frame median "
+          f"{statistics.median(times):.3f} min {min(times):.3f} max "
+          f"{max(times):.3f} over {WARM_FRAMES} frames")
+    del r_scan, scan_frame
+    del scenes, images, scan_img
 
     # 4. each kernel against its plain version, on its path's inputs
     captured = {}
@@ -490,6 +603,10 @@ def main():
             captured["composite_over"] = capture_largest_over(
                 kernels, frames[path])
             continue
+        if path == "layered_unrolled":
+            captured["cumsum"] = capture_largest_cumsum(kernels,
+                                                        frames[path])
+            continue
         wrappers = {KERNELS[n][1] for n in KERNELS if KERNELS[n][5] == path}
         calls = capture_calls(kernels, frames[path], sorted(wrappers))
         for name, spec in KERNELS.items():
@@ -497,6 +614,11 @@ def main():
                 captured[name] = calls[spec[1]]
     if captured["flatten_stroke_rows"][0][0].shape[1] != 21:
         fail("the stroked frame gave K1 no stroke rows")
+    # K8 at the layered cell's live tier: (n_live, 256) uniform values
+    n_live = profiles["layered"]["n_live"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    captured["cumsum_layered_tier"] = ((torch.rand(
+        (n_live, 256), generator=gen, device="cuda"),), {})
     results = []
     for name, (counter, wrapper, plain, source, replaces,
                path) in KERNELS.items():
@@ -516,14 +638,32 @@ def main():
         bound_ms, bound_by = bound(name, kargs,
                                    kfn(*fresh_args(name, kargs), **kw))
         launches = path_launches[path][counter]
+        # torch.cumsum is the one PyTorch call that computes K8's function
+        library_ms = (cuda_ms(lambda: torch.cumsum(kargs[0], 0), 3)
+                      if counter == "cumsum" else None)
         print(f"{name}: max_abs_err {err} kernel_ms {ms:.4f} plain_ms "
               f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
-              f"launches {launches} ({path} frame)")
+              f"library_ms {library_ms} launches {launches} ({path} frame) "
+              f"shape {tuple(kargs[0].shape)}")
         results.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+                        "library_ms": library_ms})
+
+    # K8 at the live tier on multiples of 1/16 (every prefix exact), and
+    # how far torch.cumsum (f32 on the card) is from the plain version
+    x = captured["cumsum_layered_tier"][0][0]
+    x16 = torch.floor(x * 16.0) / 16.0
+    if not torch.equal(kernels.cumsum0(x16), kernels.cumsum0_plain(x16)):
+        fail("cumsum_layered_tier: K8 differs from its plain version on "
+             "multiples of 1/16")
+    ref = kernels.cumsum0_plain(x)
+    lib_err = float((torch.cumsum(x, 0) - ref).abs().max())
+    print(f"cumsum_layered_tier: equal to the plain version on multiples "
+          f"of 1/16; torch.cumsum max abs err {lib_err} against the plain "
+          f"version (largest prefix {float(ref.abs().max())})")
+    del x, x16, ref
 
     # the paint evaluation (library PyTorch) on the gradient frame's inputs
     (pargs, pkw), = capture_calls(fine, frames["gradient_image"],
@@ -534,15 +674,16 @@ def main():
     del frames, captured, pargs, pkw
 
     # 5. smaller frames: GPU kernels against the port's CPU plain path
-    checks = [(path, scene_name, aa, getattr(test_scenes, scene_name)(
-        1 if path == "layered" else 4, 512.0))
+    checks = [(path, scene_name, aa, make_scene(
+        test_scenes, scene_name, 1 if path == "layered" else 4, 512.0))
         for path, (scene_name, aa, _) in PATHS.items()]
     checks.append(("layer_features", "layer_features", "msaa16",
                    layer_features(512.0)))
     for path, scene_name, aa, small in checks:
         sp = RenderParams(512, 512, base_color=BASE, antialiasing=aa)
-        gpu_img = Renderer(device="cuda").render_u8(small, sp)
-        cpu_img = Renderer(device="cpu").render_u8(small, sp)
+        with formulation(path):
+            gpu_img = Renderer(device="cuda").render_u8(small, sp)
+            cpu_img = Renderer(device="cpu").render_u8(small, sp)
         diff = np.abs(gpu_img.astype(np.int16) - cpu_img.astype(np.int16))
         print(f"image_check 512x512 {path} ({scene_name} {aa}): max diff "
               f"{int(diff.max())}, identical "

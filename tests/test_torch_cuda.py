@@ -10,7 +10,8 @@ import torch
 from vello_tpu_torch import Renderer, RenderParams, resolve
 from vello_tpu_torch.ops import fine, kernels
 from vello_tpu_torch.pipeline import layered
-from vello_tpu_torch.scenes.test_scenes import (filled_mmark, layered_mmark,
+from vello_tpu_torch.scenes.test_scenes import (blend_grid, filled_mmark,
+                                                layered_mmark,
                                                 mixed_paint_mmark, mmark)
 
 pytestmark = pytest.mark.cuda
@@ -203,5 +204,51 @@ def test_gpu_layered_frame_equals_cpu_frame(cuda):
     want.update(flatten=1, expand_touches=1, msaa_coverage=1,
                 composite_over=n_draws)
     assert counts == want, counts
+    cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
+    np.testing.assert_array_equal(gpu, cpu)
+
+
+@pytest.mark.parametrize("c", [1, 200, 256])
+@pytest.mark.parametrize("t", [1, 4097, 147456])
+def test_cumsum_kernel_matches_plain(cuda, t, c):
+    """K8 against its plain version (each prefix summed in f64, rounded
+    once): equal on values k/16, whose prefixes are exact in f32 (and so
+    equal to torch.cumsum's too); within 2e-6 of the largest prefix on
+    uniform values."""
+    rng = np.random.default_rng(t + c)
+    x = torch.from_numpy(rng.uniform(0, 1, (t, c)).astype(np.float32)).to(cuda)
+    x16 = torch.floor(x * 16.0) / 16.0
+    kernels.reset_launches()
+    got16 = kernels.cumsum0(x16)
+    got = kernels.cumsum0(x)
+    assert kernels.launches["cumsum"] == 2
+    torch.testing.assert_close(got16, kernels.cumsum0_plain(x16), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(got16, torch.cumsum(x16, 0), rtol=0, atol=0)
+    ref = kernels.cumsum0_plain(x)
+    bar = 2e-6 * float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= bar
+
+
+def test_gpu_unrolled_layered_frame_equals_scan_frame(cuda, monkeypatch):
+    """blend_grid at 256x256 in msaa16 on the unrolled formulation: K8 once
+    per clipped push, K7 once per non-empty draws op; the frame equals the
+    scan formulation's on the GPU (exact msaa clip prefixes) and the CPU's
+    unrolled frame."""
+    params = RenderParams(256, 256, base_color=(0.1, 0.1, 0.1, 1.0),
+                          antialiasing="msaa16")
+    rs = resolve(blend_grid(256.0).encoding, params)
+    plan = layered.build_layer_plan(rs)[1]
+    scan = Renderer(device=cuda).render_resolved(rs, params, out="rgba8")
+    monkeypatch.setenv("VELLO_TPU_UNROLLED_LAYERS", "1")
+    kernels.reset_launches()
+    gpu = Renderer(device=cuda).render_resolved(rs, params, out="rgba8")
+    counts = dict(kernels.launches)
+    want = {k: 0 for k in counts}
+    want.update(flatten=1, expand_touches=1, msaa_coverage=1,
+                composite_over=layered.nonempty_draws(plan),
+                cumsum=layered.clipped_pushes(plan))
+    assert counts == want and want["cumsum"] == 15, counts
+    np.testing.assert_array_equal(gpu, scan)
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     np.testing.assert_array_equal(gpu, cpu)

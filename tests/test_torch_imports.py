@@ -33,6 +33,7 @@ assert callable(paint.radial_t)
 assert callable(blend.blend_mix_compose_dyn)
 assert callable(filters.apply_filter_dyn)
 assert callable(layered.render_frame_layered)
+assert callable(layered.render_frame_layered_scan)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "vello_tpu"))
 print("MODULES", len(names), "FOREIGN", len(loaded), loaded[:5])

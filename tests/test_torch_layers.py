@@ -16,7 +16,12 @@
   and live cap, u8 images within 1 level with at least 99% of the bytes
   identical. The colors and the base (0.12) keep flat regions off u8 half
   levels, where the JAX package's log/exp walk would flip a whole region
-  by one level.
+  by one level;
+- the port's unrolled formulation (``VELLO_TPU_UNROLLED_LAYERS=1``, clip
+  coverage by ``segment_sum_sorted`` and so kernel K8) against its scan
+  formulation: identical in msaa16, whose clip coverage prefixes are exact
+  in f32, and within 1 level in area (against the JAX package's unrolled
+  frames: test_torch_unrolled.py).
 """
 
 import dataclasses
@@ -476,6 +481,7 @@ def check_frame(monkeypatch, name, aa, opaque=True, uncapped=False):
     plan = layered.build_layer_plan(ours)[1]
     assert calls == {"composite_over": layered.nonempty_draws(plan),
                      "composite_src": 0, "composite_solid": 0}
+    return plan
 
 
 @pytest.mark.parametrize("name", ["layered_mmark", "clips", "masks",
@@ -501,11 +507,11 @@ def test_layered_area_frame_matches_jax(jax_interpret, monkeypatch):
 
 def test_u8_rule_where_alpha_quantizes_to_zero(jax_interpret):
     """A luminance mask over the whole frame leaves alphas near 0. The
-    premultiplied f32 frames agree within 2e-5; the u8 frames agree
-    wherever alpha is at least 1/510. Below it the port writes rgb = 0, the
-    rule of its flat path and of the JAX package's flat path
-    (``tiles_to_image``), while the JAX package's layered path unpremultiplies
-    down to alpha 1e-6 (``renderer._to_rgba8_device``)."""
+    premultiplied f32 frames agree within 2e-5, and the u8 frames within 1
+    level at every pixel, those whose alpha quantizes to 0 included: the
+    layered path quantizes by the JAX package's layered rule
+    (``renderer._to_rgba8_device``: unpremultiply down to alpha 1e-6), not
+    by the flat paths' rgb = 0 below alpha 1/510 (``tiles_to_image``)."""
     params = RenderParams(SIZE, SIZE, base_color=BASE,
                           antialiasing="msaa16")
     got, want, _, _ = render_both("luminance_masks", params, out="f32")
@@ -514,8 +520,8 @@ def test_u8_rule_where_alpha_quantizes_to_zero(jax_interpret):
     vis = want[..., 3] >= 1.0 / 510.0
     assert (~vis).any() and vis.mean() > 0.5
     diff = np.abs(got8.astype(np.int16) - want8.astype(np.int16))
-    assert diff[vis].max() <= 1 and (diff[vis] == 0).mean() >= 0.99
-    assert (got8[~vis] == 0).all()
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+    assert got8[~vis][:, :3].any()          # unpremultiplied, not zeroed
 
 
 def test_renderer_layers_and_frame_thunk():
@@ -532,3 +538,79 @@ def test_renderer_layers_and_frame_thunk():
     f32 = r.render(scene, params)
     assert f32.dtype == np.float32 and (f32[..., :3] <= f32[..., 3:]
                                         + 1e-7).all()
+
+
+# ---------------------------------------------------------------------------
+# the unrolled formulation (VELLO_TPU_UNROLLED_LAYERS, kernel K8)
+
+def spy_segment_sums(monkeypatch):
+    """Count the calls of ``segmented.segment_sum_sorted`` and of K8's
+    wrapper."""
+    calls = {"segment_sum_sorted": 0, "cumsum0": 0}
+
+    def spy(module, name):
+        original = getattr(module, name)
+
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return original(*args, **kwargs)
+        monkeypatch.setattr(module, name, wrapped)
+
+    spy(segmented, "segment_sum_sorted")
+    spy(kernels, "cumsum0")
+    return calls
+
+
+@pytest.mark.parametrize("name,aa", [
+    ("clips", "msaa16"), ("blend_grid", "msaa16"), ("masks", "msaa16"),
+    ("clips", "area"), ("blend_grid", "area")])
+def test_unrolled_frame_equals_scan_frame(monkeypatch, name, aa):
+    """The port's two formulations on one resolved scene. msaa16 clip
+    coverages are multiples of 1/16, so every prefix of the unrolled sum is
+    exact and the f32 frames are equal; area coverages are not, and the
+    cumsum differences may move a u8 level."""
+    params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing=aa)
+    rs = resolve(SCENES[name](vello_tpu_torch).encoding, params)
+    scan = Renderer(device="cpu").render_resolved(rs, params)
+    scan8 = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
+    monkeypatch.setenv("VELLO_TPU_UNROLLED_LAYERS", "1")
+    sums = spy_segment_sums(monkeypatch)
+    unrolled = Renderer(device="cpu").render_resolved(rs, params)
+    unrolled8 = Renderer(device="cpu").render_resolved(rs, params,
+                                                       out="rgba8")
+    assert sums["cumsum0"] == 2 * layered.clipped_pushes(
+        layered.build_layer_plan(rs)[1]) > 0
+    if aa == "msaa16":
+        np.testing.assert_array_equal(unrolled, scan)
+        np.testing.assert_array_equal(unrolled8, scan8)
+    else:
+        np.testing.assert_allclose(unrolled, scan, rtol=0, atol=1e-5)
+        diff = np.abs(unrolled8.astype(np.int16) - scan8.astype(np.int16))
+        assert diff.max() <= 1
+
+
+@pytest.mark.parametrize("name", ["masks", "blend_grid"])
+def test_renderer_takes_unrolled_path_when_asked(monkeypatch, name):
+    """With VELLO_TPU_UNROLLED_LAYERS set, ``Renderer(device="cpu")`` takes
+    the unrolled formulation: one ``segment_sum_sorted`` per clipped push
+    (the masks scene's pushes without a clip take none); without it, the
+    scan formulation takes none. The frame thunk keeps the formulation it
+    was built with."""
+    params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing="msaa16")
+    rs = resolve(SCENES[name](vello_tpu_torch).encoding, params)
+    st, plan, _, _ = layered.build_layer_plan(rs)
+    n = layered.clipped_pushes(plan)
+    pushes = [op[0] for op in st.ops].count(layered.OP_PUSH)
+    assert (n, pushes) == {"masks": (2, 5), "blend_grid": (15, 15)}[name]
+    sums = spy_segment_sums(monkeypatch)
+    Renderer(device="cpu").render_resolved(rs, params)
+    assert sums == {"segment_sum_sorted": 0, "cumsum0": 0}
+    monkeypatch.setenv("VELLO_TPU_UNROLLED_LAYERS", "1")
+    r = Renderer(device="cpu")
+    r.render_resolved(rs, params)
+    assert r.last_profile["layered"]
+    assert sums == {"segment_sum_sorted": n, "cumsum0": n}
+    monkeypatch.delenv("VELLO_TPU_UNROLLED_LAYERS")
+    _, overflow = r.frame_thunk()()
+    assert int(overflow) == 0
+    assert sums == {"segment_sum_sorted": 2 * n, "cumsum0": 2 * n}

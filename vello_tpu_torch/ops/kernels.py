@@ -14,7 +14,9 @@ plain PyTorch version (counterpart of ``vello_tpu/ops/pallas_kernels.py``).
 - K6 src composite: ``composite_src`` (``csrc/composite_src.cu``), plain
   ``fine.composite_src_plain``;
 - K7 layered draws op: ``composite_over`` (``csrc/composite_over.cu``),
-  plain ``fine.composite_over_plain``.
+  plain ``fine.composite_over_plain``;
+- K8 column cumsum: ``cumsum0`` (``csrc/cumsum.cu``), plain
+  ``cumsum0_plain``.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel on the current stream or raises; there is no other
@@ -44,7 +46,7 @@ BUILD = os.path.join(_PKG, "build")
 LIB = os.path.join(BUILD, "libvello_kernels.so")
 SOURCES = ("flatten.cu", "expand_touches.cu", "msaa_coverage.cu",
            "composite_solid.cu", "coverage_area.cu", "composite_src.cu",
-           "composite_over.cu")
+           "composite_over.cu", "cumsum.cu")
 # --fmad=false: no a*b+c contraction, so the geometry kernels round every
 # op as the plain versions and the JAX package do (their floors must agree
 # with the host estimator); IEEE division and sqrt are nvcc's defaults.
@@ -100,7 +102,7 @@ def _dda_from_q(qx0, qy0, qx1, qy1) -> dict:
 
 launches = {"flatten": 0, "expand_touches": 0, "msaa_coverage": 0,
             "composite_solid": 0, "coverage_area": 0, "composite_src": 0,
-            "composite_over": 0}
+            "composite_over": 0, "cumsum": 0}
 
 _lib = None
 
@@ -166,6 +168,7 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(build())
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        L = ctypes.c_int64
         sigs = {
             "vt_flatten": [P, P, I, I, P, I, F, F, P],
             "vt_expand_touches": [P, P, I, P, I, P],
@@ -174,6 +177,7 @@ def _load():
             "vt_coverage_area": [P, P, P, P, P, I, I, P, P],
             "vt_composite_src": [P, P, P, P, I, P, P],
             "vt_composite_over": [P, P, P, I, P, P],
+            "vt_cumsum": [P, L, I, I, P, P, P],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -600,3 +604,37 @@ def composite_over(src, dst, los, his):
         _launch("composite_over", _load().vt_composite_over, src, los, his,
                 g, dst)
     return dst
+
+
+# --------------------------------------------------------------------------
+# K8: column cumsum (replaces cumsum_pallas / _cumsum_kernel)
+
+# rows per block of csrc/cumsum.cu's three passes; the block totals and
+# carries take ceil(T / CUMSUM_ROWS) x C doubles of scratch
+CUMSUM_ROWS = 64
+
+
+def cumsum0(x):
+    """Inclusive cumsum over axis 0 of a contiguous (T, C) f32 tensor, any
+    T >= 0 and C >= 1 (see ``cumsum0_plain``)."""
+    if _on_cpu(x):
+        return cumsum0_plain(x)
+    if x.dim() != 2 or x.shape[1] < 1:
+        raise ValueError(f"x: shape {tuple(x.shape)}, expected (T, C >= 1)")
+    t, c = x.shape
+    _check(x, "x", torch.float32, (t, c))
+    nb = -(-t // CUMSUM_ROWS)
+    if nb >= 2 ** 31 or c > 65535 * 128:
+        raise ValueError(f"x: shape {(t, c)} exceeds the launch grid")
+    out = torch.empty_like(x)
+    if t:
+        tot = torch.empty((nb, c), dtype=torch.float64, device=x.device)
+        _launch("cumsum", _load().vt_cumsum, x, t, c, CUMSUM_ROWS, tot, out)
+    return out
+
+
+def cumsum0_plain(x):
+    """Plain version of K8: every prefix summed in f64 and rounded to f32
+    once. On the CPU this is torch.cumsum(x, 0) bit for bit (it accumulates
+    f32 in f64); on the card torch.cumsum accumulates in f32."""
+    return torch.cumsum(x, 0, dtype=torch.float64).to(x.dtype)

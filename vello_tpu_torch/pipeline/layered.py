@@ -20,6 +20,15 @@ per-path coverage multipliers instead of push/pop ops
 Python and each op launches only its own work: a draws op with an empty
 path range launches nothing.
 
+Two entry points share the op loop, as in the JAX package, and differ only
+in how a clipped push gets its per-tile clip coverage:
+``render_frame_layered_scan`` (the default) looks up the clip path's one
+row per tile; ``render_frame_layered`` (``VELLO_TPU_UNROLLED_LAYERS=1``)
+sums the clip path's rows per tile with ``segment_sum_sorted``, whose
+cumsum is kernel K8. Both give the same frame bit for bit where every
+prefix of the coverage is exact in f32 (msaa), and within an ulp of a
+prefix otherwise (area).
+
 The JAX package's Pallas walk re-sorts the fragment stream by (draws op,
 tile) and gathers every src row, so that one grid step reads one span
 across 32 tiles. On the GPU one CTA walks one tile, and within a tile the
@@ -32,6 +41,7 @@ every tile's range.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -41,7 +51,7 @@ import torch
 from ..encoding.config import TILE_H, TILE_W
 from ..encoding.encoding import DRAW_BEGIN_LAYER, DRAW_END_LAYER
 from ..ops import blend as blend_ops
-from ..ops import kernels
+from ..ops import kernels, segmented
 from ..ops.filters import FILTER_NONE, apply_filter_dyn
 from ..ops.segmented import lookup_sorted, rank_sorted
 from .render import (PipelineStatic, check_supported, prepare_fragments,
@@ -278,6 +288,12 @@ def nonempty_draws(plan_dyn) -> int:
     return int(((tab[:, 0] == OP_DRAWS) & (tab[:, 4] > tab[:, 3])).sum())
 
 
+def clipped_pushes(plan_dyn) -> int:
+    """The pushes with a clip path: K8's launches per unrolled frame."""
+    tab = plan_dyn["op_tab"]
+    return int(((tab[:, 0] == OP_PUSH) & (tab[:, 5] >= 0)).sum())
+
+
 def _apply_clip_chains(fr, skey, stride: int, pca) -> None:
     """Collapsed clip chains: multiply each fragment's coverage and src
     (its alpha included) by its chain's clip-path coverages AT THE SAME
@@ -341,12 +357,21 @@ def _pop(parent, top, c, alpha: float, mix: int, compose: int):
     return (parent * (1.0 - c) + blended * c).contiguous()
 
 
-def render_frame_layered(bufs: dict, plan_dyn: dict, static: PipelineStatic,
-                         u8_out: bool = False):
-    """One layered frame: fragments with their clip paths kept, the plan's
-    ops over a stack of tile buffers, then the image. Returns (image,
-    overflow). ``plan_dyn`` is ``build_layer_plan``'s, with
-    path_clipalpha (when present) a tensor on the buffers' device."""
+def to_rgba8(img):
+    """(H, W, 4) premultiplied f32 -> straight-alpha RGBA8 by the JAX
+    package's rule for layered frames (``_to_rgba8_device`` of its
+    ``models/renderer.py``): unpremultiply down to alpha 1e-6. The flat
+    paths zero rgb below alpha 1/510 instead (``tiles_to_image``)."""
+    a = img[..., 3:4].clamp(0.0, 1.0)
+    safe = torch.where(a > 1e-6, a, 1.0)
+    rgb = (img[..., :3] / safe).clamp(0.0, 1.0)
+    return (torch.cat([rgb, a], dim=-1) * 255.0 + 0.5).to(torch.uint8)
+
+
+def _render_layered(bufs: dict, plan_dyn: dict, static: PipelineStatic,
+                    u8_out: bool, unrolled: bool):
+    """The op loop of both entry points; ``unrolled`` picks how a clipped
+    push gets its clip coverage."""
     fr = prepare_fragments(bufs, static, keep_clip_paths=True)
     WT, HT = static.width_tiles, static.height_tiles
     n_loc = WT * HT
@@ -363,8 +388,7 @@ def render_frame_layered(bufs: dict, plan_dyn: dict, static: PipelineStatic,
     tab = plan_dyn["op_tab"]
     op_alpha = plan_dyn["op_alpha"]
     op_filter = plan_dyn["op_filter"]
-    # every draws op's per-tile walk bounds, and every clipped push's clip
-    # rows, from one searchsorted each
+    # every draws op's per-tile walk bounds from one searchsorted
     draws = [i for i in range(tab.shape[0])
              if tab[i, 0] == OP_DRAWS and tab[i, 4] > tab[i, 3]]
     walk = {}
@@ -374,16 +398,30 @@ def render_frame_layered(bufs: dict, plan_dyn: dict, static: PipelineStatic,
                                + lohi[:, :, None]).reshape(-1))
         w = w.reshape(len(draws), 2, n_loc)
         walk = {i: (w[j, 0], w[j, 1]) for j, i in enumerate(draws)}
-    pushes = [i for i in range(tab.shape[0])
-              if tab[i, 0] == OP_PUSH and tab[i, 5] >= 0]
-    clip_rows = {}
-    if pushes:
-        cix = torch.from_numpy(tab[pushes, 5].astype(np.int64)).to(dev)
-        idx, found = lookup_sorted(skey, (tile_key[None, :]
-                                          + cix[:, None]).reshape(-1))
-        idx, found = idx.reshape(len(pushes), n_loc), found.reshape(
-            len(pushes), n_loc)
-        clip_rows = {i: (idx[j], found[j]) for j, i in enumerate(pushes)}
+    if unrolled:
+        # the clip path's coverage rows, zero elsewhere, summed per tile
+        # (the (tile, path) fragment is unique, so the sum selects it)
+        def clip_cov(i):
+            sel = (fr["tpath_s"] == int(tab[i, 5]))[:, None]
+            covs = torch.where(sel, cov_s, 0.0)
+            return segmented.segment_sum_sorted(covs, fr["g_s"],
+                                                n_loc)[:, None, :]
+    else:
+        # every clipped push's clip row per tile, from one searchsorted
+        pushes = [i for i in range(tab.shape[0])
+                  if tab[i, 0] == OP_PUSH and tab[i, 5] >= 0]
+        clip_rows = {}
+        if pushes:
+            cix = torch.from_numpy(tab[pushes, 5].astype(np.int64)).to(dev)
+            idx, found = lookup_sorted(skey, (tile_key[None, :]
+                                              + cix[:, None]).reshape(-1))
+            idx = idx.reshape(len(pushes), n_loc)
+            found = found.reshape(len(pushes), n_loc)
+            clip_rows = {i: (idx[j], found[j]) for j, i in enumerate(pushes)}
+
+        def clip_cov(i):
+            idx, found = clip_rows[i]
+            return torch.where(found[:, None], cov_s[idx], 0.0)[:, None, :]
 
     base = bufs["base_color"]
     base_premul = torch.cat([base[:3] * base[3], base[3:4]])
@@ -395,13 +433,9 @@ def render_frame_layered(bufs: dict, plan_dyn: dict, static: PipelineStatic,
             if i in walk:
                 kernels.composite_over(src_s, stack[-1], *walk[i])
         elif kind == OP_PUSH:
-            c = None
-            if i in clip_rows:
-                idx, found = clip_rows[i]
-                c = torch.where(found[:, None], cov_s[idx], 0.0)[:, None, :]
             stack.append(torch.zeros((n_loc, 4, NPX), dtype=torch.float32,
                                      device=dev))
-            clips.append(c)
+            clips.append(clip_cov(i) if tab[i, 5] >= 0 else None)
             alphas.append(float(op_alpha[i]))
         elif kind == OP_POP:
             top, c, alpha = stack.pop(), clips.pop(), alphas.pop()
@@ -414,17 +448,44 @@ def render_frame_layered(bufs: dict, plan_dyn: dict, static: PipelineStatic,
                     _tiles_to_canvas(top, WT, HT), fkind, op_filter[i, 1:]),
                     WT, HT)
             stack[-1] = _pop(stack[-1], top, c, alpha, mix, compose)
-    img = tiles_to_image(stack[0], static.width, static.height, u8_out)
-    return img, fr["overflow"]
+    img = tiles_to_image(stack[0], static.width, static.height)
+    return (to_rgba8(img) if u8_out else img), fr["overflow"]
+
+
+def render_frame_layered_scan(bufs: dict, plan_dyn: dict,
+                              static: PipelineStatic, u8_out: bool = False):
+    """One layered frame: fragments with their clip paths kept, the plan's
+    ops over a stack of tile buffers, then the image. A clipped push looks
+    up its clip path's one row per tile. Returns (image, overflow).
+    ``plan_dyn`` is ``build_layer_plan``'s, with path_clipalpha (when
+    present) a tensor on the buffers' device."""
+    return _render_layered(bufs, plan_dyn, static, u8_out, unrolled=False)
+
+
+def render_frame_layered(bufs: dict, plan_dyn: dict, static: PipelineStatic,
+                         u8_out: bool = False):
+    """The JAX package's unrolled formulation of the same frame: a clipped
+    push masks the coverage rows to its clip path's and sums them per tile
+    with ``segment_sum_sorted`` (one launch of K8 per clipped push). The
+    JAX package also runs that sum for a push without a clip and discards
+    it; here such a push has no clip coverage at all, as on the scan path.
+    Draws ops run K7 on their walks, as on the scan path (the JAX package's
+    unrolled draws op is the same ordered src-over in XLA)."""
+    return _render_layered(bufs, plan_dyn, static, u8_out, unrolled=True)
 
 
 def get_layered_pipeline(static: PipelineStatic, plan_dyn: dict,
                          u8_out: bool = False):
     """The layered frame as a function of the packed device buffers:
-    run(bufs) -> (image, overflow)."""
+    run(bufs) -> (image, overflow). ``VELLO_TPU_UNROLLED_LAYERS`` set
+    selects the unrolled formulation (``render_frame_layered``), as in the
+    JAX package; otherwise the scan formulation."""
     check_supported(static)
+    frame = (render_frame_layered
+             if os.environ.get("VELLO_TPU_UNROLLED_LAYERS")
+             else render_frame_layered_scan)
 
     def run(bufs):
-        return render_frame_layered(bufs, plan_dyn, static, u8_out)
+        return frame(bufs, plan_dyn, static, u8_out)
 
     return run
