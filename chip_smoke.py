@@ -5,7 +5,8 @@
 Phases (any failure exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
   2. build: compile the port's CUDA kernels from vello_tpu_torch/csrc (one
-     nvcc per source, all at once);
+     nvcc per source, all at once), and print what ptxas reports for each
+     kernel: registers, shared memory, spills;
   3. the six frame paths at full size, 1600x1600 through
      vello_tpu_torch.Renderer(device="cuda").render_u8, each with the
      launch counts set to 0 just before it and read just after:
@@ -33,7 +34,8 @@ Phases (any failure exits non-zero):
      memory;
   4. each kernel against its plain PyTorch version on the inputs of the
      path named for it in KERNELS (K1 twice: on the fill rows of the msaa16
-     frame and on the stroke rows of the stroked frame; K7 on the layered
+     frame and on the stroke rows of the stroked frame; K3 twice: on the
+     msaa16 and the stroked frame's inputs; K7 on the layered
      frame's largest draws op, a clone of its buffer for each run, since
      it works in place; K8 twice: on the unrolled frame's largest clipped
      push, and on a seeded (n_live, 256) input at the layered cell's live
@@ -96,6 +98,11 @@ KERNELS = {
                       "msaa_coverage_plain",
                       "vello_tpu_torch/csrc/msaa_coverage.cu",
                       "vello_tpu/ops/pallas_kernels.py:349", "msaa16"),
+    "msaa_coverage_stroked": ("msaa_coverage", "msaa_coverage",
+                              "msaa_coverage_plain",
+                              "vello_tpu_torch/csrc/msaa_coverage.cu",
+                              "vello_tpu/ops/pallas_kernels.py:349",
+                              "stroked"),
     "composite_solid": ("composite_solid", "composite_solid",
                         "composite_solid_plain",
                         "vello_tpu_torch/csrc/composite_solid.cu",
@@ -145,15 +152,36 @@ PATHS = {
 }
 UNROLLED = "VELLO_TPU_UNROLLED_LAYERS"
 
-# f32 operations per unit of work, counted from each kernel's source
-# (compares, selects and integer steps count as one each)
+# f32 operations per unit of work (compares, selects, a divide and integer
+# steps count as one each): K1, K2, K4, K6, K7 as counted from their
+# sources; K3 and K5 as the function needs them on these inputs, whatever
+# computes it (a term is counted once for the inputs it depends on)
 OPS_PER_LINE = 170           # K1: slot search, 2 cubic points, trim, DDA
 OPS_PER_STROKE_LINE = 250    # K1 stroke slot: 3 cubic points, 2 normals,
                              # the 7-way selects, then a fill line's work
 OPS_PER_TOUCH = 150          # K2: slot search, DDA step, tile clip, rules
-OPS_PER_SAMPLE_TEST = 10     # K3: per touch, pixel and sample
+OPS_MSAA_TOUCH = 10          # K3 per touch: dx, dy, ymin, ymax, the dy == 0
+                             # select, 1 / dy, a = inv_dy * dx, two signs
+OPS_MSAA_SAMPLE_ROW = 12     # K3 per (touch, tile row, sample): crossing
+                             # (2 compares, and), xt (3), the step's pixel
+                             # (subtract, floor, convert), the step's add,
+                             # the y_edge compare and add
+OPS_MSAA_RESOLVE = 5         # K3 per (fragment with touches, pixel,
+                             # sample): the step prefix, + backdrop, the
+                             # fill rule (2), the sample sum
+OPS_AREA_TOUCH = 6           # K5 per touch: dx, dy, the dy == 0 select,
+                             # 1 / dy, the sign (2)
+OPS_AREA_ROW = 18            # K5 per (touch, tile row): y, y0 (2), y1 (3),
+                             # dyc, t0 (2), t1 (2), t0 * dx, t1 * dx, the
+                             # y_edge term (5)
+OPS_AREA_CROSSED = 19        # K5 per (touch, pixel) of a row the touch
+                             # crosses (dyc != 0): startx, x0, x1, xmin (3),
+                             # xmax, b, c, d, the numerator (6), the
+                             # denominator, the divide, * dyc
+OPS_AREA_PIXEL = 2           # K5 per (touch, pixel): + edge term, the sum
+OPS_AREA_RESOLVE = 4         # K5 per (valid fragment, pixel): + backdrop,
+                             # the fill rule (2), the centers threshold
 OPS_PER_COMPOSITE = 18       # K4: per fragment and pixel, 4 channels
-OPS_PER_AREA_TEST = 40       # K5: per touch and pixel, one divide included
 OPS_PER_SRC_COMPOSITE = 9    # K6: per fragment and pixel, 4 channels
 OPS_PER_OVER_COMPOSITE = 9   # K7: per fragment and pixel: 1 - a, then a
                              # multiply and an add per channel
@@ -344,12 +372,27 @@ def _nbytes(*ts) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def crossed_rows(trow, starts, valid) -> int:
+    """The (touch, tile row) pairs of K5's valid fragments with dyc != 0,
+    the rows where a pixel's area term is not 0 (the same f32 ops as the
+    kernel)."""
+    t = trow[:int(starts[-1])]
+    own = torch.repeat_interleave(valid, (starts[1:] - starts[:-1]).long(),
+                                  output_size=t.shape[0])
+    t = t[own]
+    rows = torch.arange(16, dtype=torch.float32, device=t.device)
+    y = t[:, 1:2] - rows
+    dyc = y.clamp(0.0, 1.0) - (y + (t[:, 3:4] - t[:, 1:2])).clamp(0.0, 1.0)
+    return int((dyc != 0.0).sum())
+
+
 def bound(name, args, out):
-    """(least ms, "bytes" or "operations") for one launch on these inputs:
-    each input read once (of a composite's fragment rows, the ones its
-    walks cover) and the output written once over the HBM rate, against
-    the operations these inputs need over the f32 rate."""
+    """(least ms, "bytes" or "operations", the work counted) for one launch
+    on these inputs: each input read once (of a composite's fragment rows,
+    the ones its walks cover) and the output written once over the HBM
+    rate, against the operations these inputs need over the f32 rate."""
     nbytes = _nbytes(*args, out)
+    units = {}
     if name.startswith("flatten"):
         spack, incl, n_lines = args[:3]
         total = min(int(incl[-1]), n_lines)
@@ -362,11 +405,15 @@ def bound(name, args, out):
     elif name == "expand_touches":
         lpack, incl, n_touches = args[:3]
         ops = min(int(incl[-1]), n_touches) * OPS_PER_TOUCH
-    elif name == "msaa_coverage":
+    elif name.startswith("msaa_coverage"):
         trow, starts, fidx, backdrop, rule, valid, ns = args[:7]
         f = fidx.long()
         cnt = (starts[f + 1] - starts[f]) * valid[f]
-        ops = int(cnt.sum()) * 256 * ns * OPS_PER_SAMPLE_TEST
+        units = {"touches": int(cnt.sum()),
+                 "touched_rows": int((cnt > 0).sum())}
+        ops = (units["touches"] * (OPS_MSAA_TOUCH
+                                   + 16 * ns * OPS_MSAA_SAMPLE_ROW)
+               + units["touched_rows"] * 256 * ns * OPS_MSAA_RESOLVE)
     elif name == "composite_over":
         # in place: the walked src rows read, each tile with a non-empty
         # walk read and written once, the bounds read
@@ -391,11 +438,18 @@ def bound(name, args, out):
     else:
         trow, starts, backdrop, rule, valid = args[:5]
         cnt = (starts[1:] - starts[:-1]) * valid
-        ops = int(cnt.sum()) * 256 * OPS_PER_AREA_TEST
+        units = {"touches": int(cnt.sum()),
+                 "crossed_rows": crossed_rows(trow, starts, valid),
+                 "valid_fragments": int(valid.sum())}
+        ops = (units["touches"] * (OPS_AREA_TOUCH + 16 * OPS_AREA_ROW
+                                   + 256 * OPS_AREA_PIXEL)
+               + units["crossed_rows"] * 16 * OPS_AREA_CROSSED
+               + units["valid_fragments"] * 256 * OPS_AREA_RESOLVE)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations",
+            dict(units, ops=ops, bytes=nbytes))
 
 
 def compare(name, got, ref):
@@ -421,9 +475,9 @@ def compare(name, got, ref):
             fail(f"{name}: integer rows differ from the plain version")
         if not np.allclose(got[coord], ref[coord], rtol=2e-6, atol=1e-5):
             fail(f"{name}: coordinates differ (max abs err {err})")
-    elif name == "msaa_coverage":
+    elif name.startswith("msaa_coverage"):
         if not np.array_equal(got, ref):
-            fail(f"msaa_coverage: coverage differs (max abs err {err})")
+            fail(f"{name}: coverage differs (max abs err {err})")
     elif name == "coverage_area":
         if err > 1e-6:
             fail(f"coverage_area: max abs err {err} > 1e-6")
@@ -559,6 +613,10 @@ def main():
     kernels.build(force=True)
     print(f"build_s {time.perf_counter() - t0:.3f} (nvcc, "
           f"{len(kernels.SOURCES)} kernels in parallel)")
+    for src in kernels.SOURCES:
+        for line in kernels.ptxas_report[src].splitlines():
+            if any(k in line for k in ("entry function", "spill", "Used")):
+                print(f"ptxas {src}: {line.strip()}")
 
     # 3. the frame paths at full size
     scenes = {name: make_scene(test_scenes, name, COMPLEXITY, float(SIZE))
@@ -635,8 +693,8 @@ def main():
         pargs = fresh_args(name, kargs)
         plain_ms = cuda_ms(lambda: pfn(*pargs, **kw), 3)
         del targs, pargs
-        bound_ms, bound_by = bound(name, kargs,
-                                   kfn(*fresh_args(name, kargs), **kw))
+        bound_ms, bound_by, work = bound(name, kargs,
+                                         kfn(*fresh_args(name, kargs), **kw))
         launches = path_launches[path][counter]
         # torch.cumsum is the one PyTorch call that computes K8's function
         library_ms = (cuda_ms(lambda: torch.cumsum(kargs[0], 0), 3)
@@ -644,7 +702,7 @@ def main():
         print(f"{name}: max_abs_err {err} kernel_ms {ms:.4f} plain_ms "
               f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
               f"library_ms {library_ms} launches {launches} ({path} frame) "
-              f"shape {tuple(kargs[0].shape)}")
+              f"shape {tuple(kargs[0].shape)} work {work}")
         results.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -96,6 +96,132 @@ def test_area_kernel_matches_plain(cuda):
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
+def threshold_touches(ns: int, seed: int):
+    """Fragment-sorted tile-local touches, mostly on the thresholds of the
+    coverage kernels: crossing x exactly on a sample position x + c_s and
+    one f32 ulp either side (sloped, with sy == y0, and vertical); sample
+    rows exactly on ymin, ymax and y_edge; dy == 0 and dx == 0; coordinates
+    far outside the tile and near-horizontal touches with large crossing
+    x; one fragment of 400 touches; fragments with none; random touches.
+    Returns numpy (trow (T, 8) f32, starts (F+1,) i32, backdrop (F,) f32
+    integers, rule (F,) i32, valid (F,) bool)."""
+    rng = np.random.default_rng(seed)
+    offs = fine.sample_offsets(ns)
+    f32 = np.float32
+
+    def sample(k=None):
+        s = int(rng.integers(ns)) if k is None else k
+        x, y = int(rng.integers(16)), int(rng.integers(16))
+        return f32(x + offs[s][0]), f32(y + offs[s][1])
+
+    def flip(seg):
+        return seg[2:] + seg[:2] if rng.uniform() < 0.5 else seg
+
+    def on_threshold():
+        sx, sy = sample()
+        x0 = np.nextafter(sx, f32(rng.choice([-np.inf, np.inf]))) \
+            if rng.uniform() < 0.6 else sx
+        kind = rng.integers(3)
+        if kind == 0:       # sloped, crossing at its start point
+            y1 = sy + f32(rng.uniform(0.05, 5.0)) * f32(rng.choice([-1, 1]))
+            return [x0, sy, x0 + f32(rng.uniform(-6, 6)), y1]
+        if kind == 1:       # vertical through the sample
+            return flip([x0, sy - f32(rng.uniform(0, 4)), x0,
+                         sy + f32(rng.uniform(0.01, 4))])
+        # sloped, with both ends on other sample rows
+        _, sy2 = sample()
+        return [x0, sy, f32(rng.uniform(-2, 18)), sy2]
+
+    def on_rows():
+        _, sy0 = sample()
+        _, sy1 = sample()
+        return [f32(rng.uniform(-1, 17)), sy0, f32(rng.uniform(-1, 17)), sy1]
+
+    def level_or_plumb():
+        x0, y0, x1, y1 = rng.uniform(-1, 17, 4).astype(f32)
+        if rng.uniform() < 0.5:
+            return [x0, y0, x1, y0 if rng.uniform() < 0.7 else sample()[1]]
+        return [x0, y0, x0, y1]
+
+    def far():
+        if rng.uniform() < 0.5:
+            x = rng.uniform(-1e5, 1e5, 2)
+            y = rng.uniform(-60, 76, 2)
+            return [f32(x[0]), f32(y[0]), f32(x[1]), f32(y[1])]
+        # near-horizontal across a sample row: crossing x far outside
+        _, sy = sample()
+        h = f32(2.0 ** -int(rng.integers(10, 20)))
+        return flip([f32(rng.uniform(-40, 56)), sy - h,
+                     f32(rng.uniform(-40, 56)), sy + h])
+
+    def plain():
+        return list(rng.uniform(-1, 17, 4).astype(f32))
+
+    kinds = (on_threshold, on_rows, level_or_plumb, far, plain)
+    n_frag = 97
+    counts = rng.integers(0, 12, n_frag)
+    counts[rng.uniform(size=n_frag) < 0.2] = 0         # fragments with none
+    counts[41] = 400
+    rows = []
+    for c in counts:
+        for _ in range(c):
+            seg = kinds[int(rng.integers(len(kinds)))]()
+            if rng.uniform() < 0.35:
+                ye = rng.choice([sample()[1], f32(rng.uniform(0, 16)),
+                                 seg[1], seg[3]])
+            else:
+                ye = f32(1e9)
+            rows.append(list(seg) + [ye, 0.0, 0.0, 0.0])
+    trow = np.asarray(rows, dtype=f32).reshape(-1, 8)
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    backdrop = rng.integers(-3, 4, n_frag).astype(f32)
+    rule = rng.integers(0, 2, n_frag).astype(np.int32)
+    valid = rng.uniform(size=n_frag) < 0.9
+    valid[41] = True
+    return trow, starts, backdrop, rule, valid
+
+
+@pytest.mark.parametrize("has_evenodd", [False, True])
+@pytest.mark.parametrize("ns", [8, 16])
+def test_msaa_kernel_on_thresholds(cuda, ns, has_evenodd):
+    """K3 equal to its plain version on touches that sit on its
+    thresholds, for an odd number of rows in shuffled order (ns 8 packs
+    two rows per CTA) and for none."""
+    trow, starts, bd, rule, valid = threshold_touches(ns, 10 + ns)
+    fidx = np.random.default_rng(ns).permutation(len(bd))[:-2]
+    args = [torch.from_numpy(v).to(cuda) for v in (
+        trow, starts, fidx.astype(np.int32), bd, rule, valid)]
+    kernels.reset_launches()
+    got = kernels.msaa_coverage(*args, ns=ns, has_evenodd=has_evenodd)
+    assert kernels.launches["msaa_coverage"] == 1
+    ref = fine.msaa_coverage_plain(*args, ns=ns, has_evenodd=has_evenodd)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert float(got[:, 0].sum()) > 0.0
+    none = torch.zeros(0, dtype=torch.int32, device=cuda)
+    empty = kernels.msaa_coverage(args[0], args[1], none, *args[3:], ns=ns,
+                                  has_evenodd=has_evenodd)
+    assert empty.shape == (0, 256) and kernels.launches["msaa_coverage"] == 1
+
+
+@pytest.mark.parametrize("centers", [False, True])
+def test_area_kernel_on_thresholds(cuda, centers):
+    """K5 equal to its plain version on the same touches (rows that the
+    touches cross and rows they do not, the 400-touch fragment over many
+    chunks), and on no fragments at all."""
+    trow, starts, bd, rule, valid = threshold_touches(16, 3)
+    args = [torch.from_numpy(v).to(cuda)
+            for v in (trow, starts, bd, rule, valid)]
+    kernels.reset_launches()
+    got = kernels.coverage_area(*args, centers)
+    assert kernels.launches["coverage_area"] == 1
+    ref = fine.coverage_area_plain(*args, centers)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    empty = kernels.coverage_area(
+        args[0], args[1][:1].contiguous(), args[2][:0], args[3][:0],
+        args[4][:0], centers)
+    assert empty.shape == (0, 256) and kernels.launches["coverage_area"] == 1
+
+
 @pytest.mark.parametrize("aa", ["msaa16", "area"])
 @pytest.mark.parametrize("scene,composite", [
     (mixed_paint_mmark, "composite_src"), (mmark, "composite_solid")])

@@ -103,3 +103,38 @@ def test_msaa_rows_follow_fidx():
         args[0], s2, torch.tensor([f], dtype=torch.int32), bd2, rl2,
         torch.ones(f + 1, dtype=torch.bool), ns=8)
     assert torch.equal(cov, torch.ones(1, 256))
+
+
+@pytest.mark.parametrize("ns", [8, 16])
+def test_first_right_threshold_is_exact(ns):
+    """The rule by which K3 (csrc/msaa_coverage.cu, first_right) finds, per
+    touch and sample row, the first pixel x whose sample lies right of the
+    crossing x: floor(xt - c_s) + 1 with the difference clamped to
+    [-1, 16] in f32, no correcting compare. It must select exactly the
+    pixels of the plain version's 16 f32 compares xt < x + c_s, at every
+    sample position, 40 ulps either side, and over wide ranges of xt."""
+    from vello_tpu_torch.ops.fine import sample_offsets
+    f32 = np.float32
+    rng = np.random.default_rng(ns)
+    pixels = np.arange(16).astype(f32)
+    for cx, _ in sample_offsets(ns):
+        cs = f32(cx)
+        on = (np.arange(-3, 20).astype(f32) + cs).astype(f32)
+        xs = [on]
+        for direction in (np.inf, -np.inf):
+            v = on
+            for _ in range(40):
+                v = np.nextafter(v, f32(direction))
+                xs.append(v)
+        xs += [rng.uniform(-30, 30, 50000).astype(f32),
+               (rng.uniform(-1, 1, 50000)
+                * 10.0 ** rng.uniform(-30, 10, 50000)).astype(f32),
+               np.array([0.0, -0.0, 1e-45, -1e-45, np.inf, -np.inf, np.nan,
+                         3e38, -3e38], f32)]
+        xt = np.concatenate(xs)
+        with np.errstate(all="ignore"):
+            d = np.fmax(np.fmin((xt - cs).astype(f32), f32(16)), f32(-1))
+            right = xt[:, None] < (pixels + cs).astype(f32)[None, :]
+        first = np.minimum(np.floor(d).astype(np.int64) + 1, 16)
+        np.testing.assert_array_equal(pixels[None, :] >= first[:, None],
+                                      right)

@@ -13,19 +13,29 @@
 // the more exact of the two (a cumsum difference carries about an ulp of
 // the running sum).
 //
-// What bounds it on the H100: arithmetic. Every (touch, pixel) pair costs
-// ~40 f32 operations including one IEEE divide; the kernel reads T x 32 B of
-// touches (broadcast within a CTA) and writes F x 1 KB of coverage, so at
-// the 1600x1600 filled_mmark-30k tier (T = 655360, F = 180224) the output
-// write (184 MB) and the ~6.7e9 operations are of the same order.
+// What bounds it on the H100: the F x 1 KB coverage write (184 MB at the
+// 1600x1600 filled_mmark-30k tier, F = 180224) against instruction issue
+// and the latency of each fragment's short chain of dependent loads
+// (its touch range, then its touches). Of the area formula, 1 / dy and the
+// sign belong to the touch; y, the clamped y0 and y1, dyc, t0 * dx,
+// t1 * dx and the left-edge term belong to the (touch, tile row); only the
+// x chain and its quotient belong to the pixel, and only where the touch
+// crosses the row (dyc != 0): a short touch crosses a few of the 16 rows.
 //
-// Design: one CTA per fragment f, 256 threads, one per tile pixel. Each
-// thread walks the fragment's touches [starts[f], starts[f+1]) in stream
-// order and keeps its sum in a register, then adds the backdrop, applies the
-// fill rule and the centers threshold, and writes its pixel. Nothing crosses
-// CTAs. The area formula keeps the Pallas op order, including the 1e-6
-// nudge, the dy == 0 guard and the dyc != 0 select (a select, not a product:
-// a can be inf there); with --fmad=false the kernel and its plain version
+// Design: one CTA of kThreads per fragment f, each thread kPix pixels of
+// one column (rows y, y + 16 / kPix, ...): fewer, busier threads amortize
+// a fragment's fixed work and keep kPix independent sums in flight (4
+// pixels ran fastest of 1, 2, 4 and 8: utils/coverage_sweep.py, PERF.md).
+// The fragment's metadata loads are issued together. Per chunk
+// of kThreads / 16 touches, thread (k, r) computes the row terms of touch
+// k for tile row r into shared memory; then each thread walks the chunk's
+// touches in stream order (the plain version's order of additions: these
+// are real f32 sums), runs the x chain where dyc != 0 and adds area plus
+// edge term to each of its sums. Then the backdrop, the fill rule, the
+// centers threshold and the writes. Every term keeps the Pallas op order,
+// including the 1e-6 nudge, the dy == 0 guard and the dyc != 0 select (the
+// area is 0 where dyc is 0, whatever the quotient: it can be inf there);
+// with --fmad=false the kernel and its plain version
 // (fine.coverage_area_plain) agree bit for bit.
 
 #include <cuda_runtime.h>
@@ -34,55 +44,104 @@
 
 namespace {
 
-__global__ void coverage_area_kernel(const float* __restrict__ trow,
-                                     const int* __restrict__ starts,
-                                     const float* __restrict__ backdrop,
-                                     const int* __restrict__ rule,
-                                     const unsigned char* __restrict__ valid,
-                                     int centers, float* __restrict__ out) {
+// pixels per thread, one column, 1, 2, 4 or 8 (utils/coverage_sweep.py
+// times each with -DVT_AREA_PIXELS)
+#ifndef VT_AREA_PIXELS
+#define VT_AREA_PIXELS 4
+#endif
+constexpr int kPix = VT_AREA_PIXELS;
+constexpr int kThreads = 256 / kPix;
+constexpr int kChunk = kThreads / 16;   // touches staged per pass
+
+// The area of a touch in the row whose terms rt are (dyc != 0, t0 * dx,
+// t1 * dx, edge), at the pixel px columns right of the touch's x0 = sx.
+__device__ __forceinline__ float crossed_area(float4 rt, float sx, float px) {
+  const float startx = sx - px;
+  const float x0 = startx + rt.y;
+  const float x1 = startx + rt.z;
+  const float xmin = fminf(fminf(x0, x1), 1.0f) - 1e-6f;
+  const float xmax = fmaxf(x0, x1);
+  const float b = fminf(xmax, 1.0f);
+  const float c = fmaxf(b, 0.0f);
+  const float d = fmaxf(xmin, 0.0f);
+  const float a = (b + 0.5f * (d * d - c * c) - xmin) / (xmax - xmin);
+  return a * rt.x;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    coverage_area_kernel(const float* __restrict__ trow,
+                         const int* __restrict__ starts,
+                         const float* __restrict__ backdrop,
+                         const int* __restrict__ rule,
+                         const unsigned char* __restrict__ valid,
+                         int centers, float* __restrict__ out) {
+  // per (touch, row): dyc, t0 * dx, t1 * dx, sgn * clamp(py - ye + 1, 0, 1)
+  __shared__ float4 row_terms[kChunk][16];
+  __shared__ float start_x[kChunk];
   const int f = blockIdx.x;
-  const int px_i = threadIdx.x;
-  float* o = out + (size_t)f * 256 + px_i;
-  if (!valid[f]) {
-    *o = 0.0f;
+  const int tid = threadIdx.x;
+  float* o = out + (size_t)f * 256 + tid;
+  const bool ok = valid[f];
+  const int lo = starts[f];
+  const int hi = starts[f + 1];
+  const float bd = backdrop[f];
+  const bool evenodd = rule[f] == 1;
+  if (!ok) {
+#pragma unroll
+    for (int h = 0; h < kPix; ++h) o[h * kThreads] = 0.0f;
     return;
   }
-  const float px = (float)(px_i % 16);
-  const float py = (float)(px_i / 16);
-  float sum = 0.0f;
-  const int t_end = starts[f + 1];
-  for (int t = starts[f]; t < t_end; ++t) {
-    const float* tr = trow + (size_t)t * 8;
-    const float p0x = tr[0], p0y = tr[1], p1x = tr[2], p1y = tr[3];
-    const float ye = tr[4];
-    const float dx = p1x - p0x;
-    const float dy = p1y - p0y;
-    const float y = p0y - py;
-    const float y0 = vt::clampf(y, 0.0f, 1.0f);
-    const float y1 = vt::clampf(y + dy, 0.0f, 1.0f);
-    const float dyc = y0 - y1;
-    const float inv_dy = 1.0f / (dy == 0.0f ? 1.0f : dy);
-    const float t0 = (y0 - y) * inv_dy;
-    const float t1 = (y1 - y) * inv_dy;
-    const float startx = p0x - px;
-    const float x0 = startx + t0 * dx;
-    const float x1 = startx + t1 * dx;
-    const float xmin = fminf(fminf(x0, x1), 1.0f) - 1e-6f;
-    const float xmax = fmaxf(x0, x1);
-    const float b = fminf(xmax, 1.0f);
-    const float c = fmaxf(b, 0.0f);
-    const float d = fmaxf(xmin, 0.0f);
-    const float a = (b + 0.5f * (d * d - c * c) - xmin) / (xmax - xmin);
-    float area = dyc != 0.0f ? a * dyc : 0.0f;
-    const float sgn = dx > 0.0f ? 1.0f : (dx < 0.0f ? -1.0f : 0.0f);
-    area = area + sgn * vt::clampf(py - ye + 1.0f, 0.0f, 1.0f);
-    sum += area;
+  // walking role: pixels (lo4, hi4 + h * 16 / kPix); staging role: touch
+  // hi4 of the chunk at tile row lo4
+  const int lo4 = tid % 16;
+  const int hi4 = tid / 16;
+  const float px = (float)lo4;
+  const float row = (float)lo4;
+  float sum[kPix];
+#pragma unroll
+  for (int h = 0; h < kPix; ++h) sum[h] = 0.0f;
+  for (int c0 = lo; c0 < hi; c0 += kChunk) {
+    const int t = c0 + hi4;
+    if (t < hi) {
+      const float* tr = trow + (size_t)t * 8;
+      const float4 p = *reinterpret_cast<const float4*>(tr);  // p0, p1
+      const float ye = tr[4];
+      const float dx = p.z - p.x;
+      const float dy = p.w - p.y;
+      const float y = p.y - row;
+      const float y0 = vt::clampf(y, 0.0f, 1.0f);
+      const float y1 = vt::clampf(y + dy, 0.0f, 1.0f);
+      const float inv_dy = 1.0f / (dy == 0.0f ? 1.0f : dy);
+      const float t0 = (y0 - y) * inv_dy;
+      const float t1 = (y1 - y) * inv_dy;
+      const float sgn = dx > 0.0f ? 1.0f : (dx < 0.0f ? -1.0f : 0.0f);
+      row_terms[hi4][lo4] =
+          make_float4(y0 - y1, t0 * dx, t1 * dx,
+                      sgn * vt::clampf(row - ye + 1.0f, 0.0f, 1.0f));
+      if (lo4 == 0) start_x[hi4] = p.x;
+    }
+    __syncthreads();
+    const int n = min(kChunk, hi - c0);
+    for (int k = 0; k < n; ++k) {
+      const float sx = start_x[k];
+#pragma unroll
+      for (int h = 0; h < kPix; ++h) {
+        const float4 rt = row_terms[k][hi4 + h * (16 / kPix)];
+        float area = 0.0f;
+        if (rt.x != 0.0f) area = crossed_area(rt, sx, px);
+        sum[h] += area + rt.w;
+      }
+    }
+    __syncthreads();
   }
-  const float w = backdrop[f] + sum;
-  float cov = rule[f] == 1 ? fabsf(w - 2.0f * rintf(0.5f * w))
-                           : fminf(fabsf(w), 1.0f);
-  if (centers) cov = cov >= 0.5f ? 1.0f : 0.0f;
-  *o = cov;
+#pragma unroll
+  for (int h = 0; h < kPix; ++h) {
+    const float w = bd + sum[h];
+    float cov = evenodd ? fabsf(w - 2.0f * rintf(0.5f * w))
+                        : fminf(fabsf(w), 1.0f);
+    if (centers) cov = cov >= 0.5f ? 1.0f : 0.0f;
+    o[h * kThreads] = cov;
+  }
 }
 
 }  // namespace
@@ -91,7 +150,7 @@ extern "C" int vt_coverage_area(const float* trow, const int* starts,
                                 const float* backdrop, const int* rule,
                                 const unsigned char* valid, int n_frags,
                                 int centers, float* out, cudaStream_t stream) {
-  coverage_area_kernel<<<n_frags, 256, 0, stream>>>(trow, starts, backdrop,
-                                                    rule, valid, centers, out);
+  coverage_area_kernel<<<n_frags, kThreads, 0, stream>>>(
+      trow, starts, backdrop, rule, valid, centers, out);
   return (int)cudaGetLastError();
 }

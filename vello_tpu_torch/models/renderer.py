@@ -116,8 +116,9 @@ class Renderer:
 
     ``device`` is a torch device ("cpu" runs every kernel's plain PyTorch
     version; "cuda" runs the CUDA kernels and raises when there is no
-    GPU). ``last_profile`` holds the tier, retries, live-fragment cap and
-    wall time of the last render."""
+    GPU). ``last_profile`` holds the tier, retries, live-fragment cap, the
+    wall time of the last render up to its readback and the readback's
+    time."""
 
     def __init__(self, device="cuda", max_retries: int = 3):
         self.device = torch.device(device)
@@ -133,6 +134,11 @@ class Renderer:
         buffers: () -> (device image, overflow), with no host resolve and
         no readback. For benchmark and serving loops."""
         return self._frame
+
+    def warmup(self, scene: Scene, params: RenderParams) -> None:
+        """Render once and discard the image: builds the kernels and leaves
+        the frame behind ``frame_thunk``."""
+        self.render(scene, params)
 
     def render(self, scene: Scene, params: RenderParams) -> np.ndarray:
         self._check_params(params)
@@ -165,6 +171,13 @@ class Renderer:
 
     def render_resolved(self, rs: ResolvedScene, params: RenderParams,
                         out: str = "f32") -> np.ndarray:
+        # the port runs the fused geometry path only (here rather than in
+        # _check_params: every entry point and the callers of
+        # render_resolved pass this way)
+        if os.environ.get("VELLO_TPU_NO_FUSED_GEOM"):
+            raise NotImplementedError(
+                "the non-fused geometry path (VELLO_TPU_NO_FUSED_GEOM) is "
+                "not ported yet (ROADMAP item 9)")
         t_start = time.time()
         caps = rs.capacities(params)
         kinds = set(int(k) for k in rs.paint_kind)
@@ -216,9 +229,11 @@ class Renderer:
             img, overflow_t = frame()
             overflow = int(overflow_t)           # the frame's one readback
             if overflow == 0:
+                t_done = time.time()
                 img = img.cpu().numpy()
                 self.last_profile = {
-                    "wall_s": time.time() - t_start,
+                    "wall_s": t_done - t_start,
+                    "readback_s": time.time() - t_done,
                     "tier": dict(zip(_TIER_KEYS, caps.key())),
                     "retries": attempt,
                     "layered": has_layers,

@@ -50,8 +50,11 @@ SOURCES = ("flatten.cu", "expand_touches.cu", "msaa_coverage.cu",
 # --fmad=false: no a*b+c contraction, so the geometry kernels round every
 # op as the plain versions and the JAX package do (their floors must agree
 # with the host estimator); IEEE division and sqrt are nvcc's defaults.
+# -Xptxas -v: ptxas reports each kernel's registers, shared memory and
+# spills (kept in ``ptxas_report``).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-Xcompiler", "-fPIC", "--fmad=false")
+              "-std=c++17", "-Xcompiler", "-fPIC", "--fmad=false",
+              "-Xptxas", "-v")
 
 # Keeps clamped verticals strictly inside the viewport (the JAX package's
 # _EDGE_EPS: far below the u8 quantum, exact next to widths up to 8192).
@@ -106,6 +109,9 @@ launches = {"flatten": 0, "expand_touches": 0, "msaa_coverage": 0,
 
 _lib = None
 
+# source -> what ptxas reported when build() last compiled it
+ptxas_report: dict = {}
+
 
 def reset_launches() -> None:
     for k in launches:
@@ -141,8 +147,9 @@ def build(force: bool = False) -> str:
             [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     errors = []
-    for obj, proc in jobs:
+    for src, (obj, proc) in zip(SOURCES, jobs):
         out, err = proc.communicate()
+        ptxas_report[src] = err
         if proc.returncode != 0:
             errors.append(f"{obj}: nvcc failed ({proc.returncode}):\n"
                           f"{out}\n{err}")
@@ -211,6 +218,12 @@ def _check(t, name, dtype, shape):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_rows_aligned(trow):
+    """K3 and K5 read each 32-byte touch row as float4."""
+    if trow.data_ptr() % 16:
+        raise ValueError("trow must start on a 16-byte boundary")
 
 
 def _launch(name, fn, *args):
@@ -505,6 +518,7 @@ def msaa_coverage(trow, starts, fidx, backdrop, rule, valid, ns: int,
     _check(backdrop, "backdrop", torch.float32, (f,))
     _check(rule, "rule", torch.int32, (f,))
     _check(valid, "valid", torch.bool, (f,))
+    _check_rows_aligned(trow)
     out = torch.empty((n, NPX), dtype=torch.float32, device=trow.device)
     if n:
         _launch("msaa_coverage", _load().vt_msaa_coverage, trow, starts,
@@ -554,6 +568,7 @@ def coverage_area(trow, starts, backdrop, rule, valid, centers: bool):
     _check(backdrop, "backdrop", torch.float32, (f,))
     _check(rule, "rule", torch.int32, (f,))
     _check(valid, "valid", torch.bool, (f,))
+    _check_rows_aligned(trow)
     out = torch.empty((f, NPX), dtype=torch.float32, device=trow.device)
     if f:
         _launch("coverage_area", _load().vt_coverage_area, trow, starts,
