@@ -162,11 +162,13 @@ OPS_PER_STROKE_LINE = 250    # K1 stroke slot: 3 cubic points, 2 normals,
 OPS_PER_TOUCH = 150          # K2: slot search, DDA step, tile clip, rules
 OPS_MSAA_TOUCH = 10          # K3 per touch: dx, dy, ymin, ymax, the dy == 0
                              # select, 1 / dy, a = inv_dy * dx, two signs
-OPS_MSAA_SAMPLE_ROW = 12     # K3 per (touch, tile row, sample): crossing
-                             # (2 compares, and), xt (3), the step's pixel
-                             # (subtract, floor, convert), the step's add,
-                             # the y_edge compare and add
-OPS_MSAA_RESOLVE = 5         # K3 per (fragment with touches, pixel,
+OPS_MSAA_SAMPLE_ROW = 5      # K3 per (touch, tile row, sample): the
+                             # crossing test (2 compares, and), the y_edge
+                             # compare and add
+OPS_MSAA_CROSSING = 7        # K3 per (touch, sample row) it crosses: xt
+                             # (3), the step's pixel (subtract, floor,
+                             # convert), the step's add
+OPS_MSAA_RESOLVE = 5        # K3 per (fragment with touches, pixel,
                              # sample): the step prefix, + backdrop, the
                              # fill rule (2), the sample sum
 OPS_AREA_TOUCH = 6           # K5 per touch: dx, dy, the dy == 0 select,
@@ -386,6 +388,29 @@ def crossed_rows(trow, starts, valid) -> int:
     return int((dyc != 0.0).sum())
 
 
+def crossed_samples(trow, starts, fidx, valid, ns) -> int:
+    """The (touch, sample row) pairs of K3's rows whose crossing test holds,
+    ymin <= sy < ymax, over the 16 * ns sample rows sy = y + (s + 0.5) / ns
+    of a tile (exact in f32 and ascending, so a touch's count is the
+    difference of two searches)."""
+    f = fidx.long()
+    lo = starts[f].long()
+    cnt = ((starts[f + 1] - starts[f]) * valid[f]).long()
+    total = int(cnt.sum())
+    # the touch index of each (row, touch) pair
+    first = torch.repeat_interleave(lo - (torch.cumsum(cnt, 0) - cnt), cnt,
+                                    output_size=total)
+    t = trow[first + torch.arange(total, device=trow.device)]
+    ymin = torch.minimum(t[:, 1], t[:, 3]).contiguous()
+    ymax = torch.maximum(t[:, 1], t[:, 3]).contiguous()
+    sy = (torch.arange(16, dtype=torch.float32, device=trow.device)[:, None]
+          + (torch.arange(ns, dtype=torch.float32, device=trow.device)
+             + 0.5) / ns).reshape(-1)
+    n = (torch.searchsorted(sy, ymax, side="left")
+         - torch.searchsorted(sy, ymin, side="left"))
+    return int(n.clamp_min(0).sum())
+
+
 def bound(name, args, out):
     """(least ms, "bytes" or "operations", the work counted) for one launch
     on these inputs: each input read once (of a composite's fragment rows,
@@ -410,9 +435,11 @@ def bound(name, args, out):
         f = fidx.long()
         cnt = (starts[f + 1] - starts[f]) * valid[f]
         units = {"touches": int(cnt.sum()),
+                 "crossings": crossed_samples(trow, starts, fidx, valid, ns),
                  "touched_rows": int((cnt > 0).sum())}
         ops = (units["touches"] * (OPS_MSAA_TOUCH
                                    + 16 * ns * OPS_MSAA_SAMPLE_ROW)
+               + units["crossings"] * OPS_MSAA_CROSSING
                + units["touched_rows"] * 256 * ns * OPS_MSAA_RESOLVE)
     elif name == "composite_over":
         # in place: the walked src rows read, each tile with a non-empty

@@ -25,7 +25,7 @@
 // Design: one CTA of kThreads per fragment f, each thread kPix pixels of
 // one column (rows y, y + 16 / kPix, ...): fewer, busier threads amortize
 // a fragment's fixed work and keep kPix independent sums in flight (4
-// pixels ran fastest of 1, 2, 4 and 8: utils/coverage_sweep.py, PERF.md).
+// pixels ran fastest of 1, 2, 4 and 8: PERF.md §6).
 // The fragment's metadata loads are issued together. Per chunk
 // of kThreads / 16 touches, thread (k, r) computes the row terms of touch
 // k for tile row r into shared memory; then each thread walks the chunk's
@@ -44,12 +44,7 @@
 
 namespace {
 
-// pixels per thread, one column, 1, 2, 4 or 8 (utils/coverage_sweep.py
-// times each with -DVT_AREA_PIXELS)
-#ifndef VT_AREA_PIXELS
-#define VT_AREA_PIXELS 4
-#endif
-constexpr int kPix = VT_AREA_PIXELS;
+constexpr int kPix = 4;  // pixels per thread, one column: 1, 2, 4 or 8
 constexpr int kThreads = 256 / kPix;
 constexpr int kChunk = kThreads / 16;   // touches staged per pass
 

@@ -19,8 +19,7 @@
 // two rows at ns 8; in the touch phase each thread owns one sample s and
 // KR tile rows y, y + 16 / KR, ... of its row's fragment. Fewer, busier
 // threads amortize a fragment's fixed work and keep KR independent chains
-// in flight; 2 rows ran fastest of 1, 2, 4 and 8 (utils/coverage_sweep.py,
-// PERF.md).
+// in flight; 2 rows ran fastest of 1, 2, 4 and 8 (PERF.md §6).
 //  1. The fragment's touches [starts[f], starts[f+1]) (f = fidx[i]) are
 //     staged in shared memory, one touch per thread and chunk, as their
 //     per-touch terms (ymin, ymax, a = inv_dy * dx, the signs): the IEEE
@@ -45,12 +44,7 @@
 
 namespace {
 
-// sample rows per thread, 1, 2, 4 or 8 (utils/coverage_sweep.py times
-// each with -DVT_MSAA_ROWS)
-#ifndef VT_MSAA_ROWS
-#define VT_MSAA_ROWS 2
-#endif
-constexpr int KR = VT_MSAA_ROWS;
+constexpr int KR = 2;  // sample rows per thread: 1, 2, 4 or 8
 constexpr int kThreads = 256 / KR;
 constexpr int kRow = 17;  // 16 pixels + the no-pixel slot; odd: no bank
                           // conflicts between the rows of a warp
