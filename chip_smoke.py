@@ -31,25 +31,28 @@ Phases (any failure exits non-zero):
      each with overflow 0, no retry, the host's tier and one launch of each
      of its kernels (K7: as many as the plan's non-empty draws ops; K8: as
      many as its clipped pushes); first-frame and warm per-frame times, peak
-     memory;
+     memory; Renderer.profile's device ms per stage, held to cover all but
+     5% of the device time with each kernel under its stage (K1 under
+     s02_flatten, K2 under s03_touch_expand, ...), and each kernel's
+     in-frame time per launch; the stage ranges' host cost;
   4. each kernel against its plain PyTorch version on the inputs of the
      path named for it in KERNELS (K1 twice: on the fill rows of the msaa16
-     frame and on the stroke rows of the stroked frame; K3 twice: on the
-     msaa16 and the stroked frame's inputs; K7 on the layered
+     frame and on the stroke rows of the stroked frame; K2 and K3 twice: on
+     the msaa16 and the stroked frame's inputs; K7 on the layered
      frame's largest draws op, a clone of its buffer for each run, since
      it works in place; K8 twice: on the unrolled frame's largest clipped
      push, and on a seeded (n_live, 256) input at the layered cell's live
-     tier, uniform and in multiples of 1/16), with times for both, the
-     least time the card could take and, for K8, torch.cumsum's time; the
-     paint evaluation's time on the gradient frame's inputs;
+     tier, uniform and in multiples of 1/16), with times for both (CUDA
+     events, and the kernel's profiled time), the least time the card
+     could take and, for K8, torch.cumsum's time; the paint evaluation's
+     time on the gradient frame's inputs;
   5. 512x512 frames of all six paths' scenes, and of a scene with every
      kind of layer (clip chain, pushed clip, luminance and alpha masks,
      multiply, blur filter, unbalanced push), rendered on the GPU and with
      the port on the CPU, within 1 u8 level.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels, and the one before that the card. ``--profile DIR`` also
-writes a torch.profiler table of three warm frames of each path to DIR and
-prints each path's device time per frame.
+writes a torch.profiler table of three warm frames of each path to DIR.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -63,6 +66,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -94,6 +98,11 @@ KERNELS = {
                        "expand_touches_plain",
                        "vello_tpu_torch/csrc/expand_touches.cu",
                        "vello_tpu/ops/pallas_kernels.py:911", "msaa16"),
+    "expand_touches_stroked": ("expand_touches", "expand_touches",
+                               "expand_touches_plain",
+                               "vello_tpu_torch/csrc/expand_touches.cu",
+                               "vello_tpu/ops/pallas_kernels.py:911",
+                               "stroked"),
     "msaa_coverage": ("msaa_coverage", "msaa_coverage",
                       "msaa_coverage_plain",
                       "vello_tpu_torch/csrc/msaa_coverage.cu",
@@ -129,6 +138,20 @@ KERNELS = {
                             "layered_unrolled"),
 }
 
+# launch counter -> (the name its CUDA kernels carry in a profiler trace,
+# the stage range of the frame that launches it)
+KERNEL_STAGES = {
+    "flatten": (("flatten_kernel",), "s02_flatten"),
+    "expand_touches": (("expand_touches_kernel",), "s03_touch_expand"),
+    "msaa_coverage": (("msaa_coverage_kernel",), "s08_coverage_assembly"),
+    "coverage_area": (("coverage_area_kernel",), "s06_coverage"),
+    "composite_solid": (("composite_solid_kernel",), "s10_composite"),
+    "composite_src": (("composite_src_kernel",), "s10_composite"),
+    "composite_over": (("composite_over_kernel",), "s20_op_draws"),
+    "cumsum": (("cumsum_totals_kernel", "cumsum_carries_kernel",
+                "cumsum_rows_kernel"), "s21_op_push"),
+}
+
 # frame path -> (scene, antialiasing, the launch counters of its kernels)
 PATHS = {
     "msaa16": ("filled_mmark", "msaa16",
@@ -153,13 +176,27 @@ PATHS = {
 UNROLLED = "VELLO_TPU_UNROLLED_LAYERS"
 
 # f32 operations per unit of work (compares, selects, a divide and integer
-# steps count as one each): K1, K2, K4, K6, K7 as counted from their
-# sources; K3 and K5 as the function needs them on these inputs, whatever
-# computes it (a term is counted once for the inputs it depends on)
-OPS_PER_LINE = 170           # K1: slot search, 2 cubic points, trim, DDA
-OPS_PER_STROKE_LINE = 250    # K1 stroke slot: 3 cubic points, 2 normals,
-                             # the 7-way selects, then a fill line's work
-OPS_PER_TOUCH = 150          # K2: slot search, DDA step, tile clip, rules
+# steps count as one each): K4, K6, K7 as counted from their sources; K1,
+# K2, K3 and K5 as the function needs them on these inputs, whatever
+# computes it (a term is counted once for the inputs it depends on; the
+# search for a slot's owner is the kernels' means, not the function's work)
+OPS_FILL_SLOT = 181          # K1 per live fill slot: t0, t1 (4), 2 cubic
+                             # points (48), y trim (25), alive (8), x clamp
+                             # and left edge (47), orientation (5), DDA
+                             # count (29), on_right and live (9), outputs (4)
+OPS_STROKE_MINI = 142        # K1 per (stroked segment, mini): 3 t (6), 3
+                             # cubic points (72), 2 chord normals (21), the
+                             # join normal, side and bevel corners (33), the
+                             # 7 corner points (8), the collapse (2)
+OPS_STROKE_SLOT = 144        # K1 per live stroke slot: mini and edge (7),
+                             # the edge's endpoints (10), then a fill slot's
+                             # work from the y trim on (127)
+OPS_TOUCH_LINE = 69          # K2 per line with a live touch: the DDA setup
+                             # (spans, count, a with its correction, b, the
+                             # first tile, 1/dxl, 1/dyl)
+OPS_PER_TOUCH = 142          # K2 per live touch: z(i-1), z(i), z(i+1), the
+                             # tile, ftile, backdrop, the tile clip, the
+                             # path_tiling rules, outputs
 OPS_MSAA_TOUCH = 10          # K3 per touch: dx, dy, ymin, ymax, the dy == 0
                              # select, 1 / dy, a = inv_dy * dx, two signs
 OPS_MSAA_SAMPLE_ROW = 5      # K3 per (touch, tile row, sample): the
@@ -271,6 +308,69 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
+def is_kernel_of(counter, kernel_name) -> bool:
+    return any(sym in kernel_name for sym in KERNEL_STAGES[counter][0])
+
+
+def profiled_ms(counter, fn, reps: int):
+    """Device time per call of fn's kernels of ``counter`` in a profiler
+    trace of reps calls, after a warm-up: kernel time alone, without the
+    launch gaps that CUDA events around the calls include. The trace is
+    read as ``Renderer.profile`` reads a frame's. A call launches each of
+    its kernels once; a trace can lose kernel events, so each kernel's
+    time is its mean over the events kept. Returns (ms, events kept,
+    events launched), ms None when the trace kept none."""
+    from vello_tpu_torch.utils.profile import profile_stages
+    _, split, counts = profile_stages(fn, iters=reps, detail=True)
+    ms, kept = defaultdict(float), defaultdict(int)
+    for (st, k), t in split.items():
+        if is_kernel_of(counter, k):
+            ms[k] += t * reps
+            kept[k] += counts[(st, k)]
+    n = len(KERNEL_STAGES[counter][0])
+    return (sum(ms[k] / kept[k] for k in ms) if ms else None,
+            sum(kept.values()), n * reps)
+
+
+def check_stages(path, stages, split, used, launches) -> dict:
+    """Hold a path's Renderer.profile to the trace: stage ranges cover
+    all but 5% of the device time, and each kernel of the path runs under
+    its stage only. Returns {counter: in-frame kernel ms per launch}."""
+    if not stages:
+        fail(f"[{path}] Renderer.profile found no device time")
+    total = stages["_total"]
+    if stages["_other"] > 0.05 * total:
+        top = sorted((ms, k) for (st, k), ms in split.items()
+                     if st == "_other")[-5:]
+        fail(f"[{path}] {stages['_other']:.4f} of {total:.4f} device ms per "
+             f"frame under no stage (more than 5%), largest: {top}")
+    per_launch = {}
+    for counter in used:
+        want = KERNEL_STAGES[counter][1]
+        mine = {st: 0.0 for st, _ in split}
+        for (st, k), ms in split.items():
+            if is_kernel_of(counter, k):
+                mine[st] += ms
+        if mine.get(want, 0.0) <= 0.0 or any(
+                ms > 0.0 for st, ms in mine.items() if st != want):
+            fail(f"[{path}] {counter}'s kernels by stage {mine}: expected "
+                 f"all under {want}")
+        per_launch[counter] = mine[want] / launches[counter]
+    return per_launch
+
+
+def frame_share(path, counter, bound_ms, in_frame, path_launches):
+    """A kernel launched many times a frame (K7 per draws op, K8 per
+    clipped push) in the frame against the bound of the same work, the sum
+    of its launches' bounds (one launch alone, timed again and again on
+    the same buffers, runs from L2)."""
+    n = path_launches[path][counter]
+    ms = in_frame[path][counter] * n
+    print(f"{counter}: in the {path} frame, {n} launches: profiled kernel "
+          f"ms per frame {ms:.4f}, the sum of their bounds {bound_ms:.4f} "
+          f"ms, share {bound_ms / ms:.3f}")
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn over reps calls, after one warm-up."""
     fn()
@@ -314,12 +414,15 @@ def capture_calls(module, frame, names):
 def capture_largest_over(kernels, frame):
     """Run one frame with K7's wrapper wrapped; returns the (args, kwargs)
     of its draws op that walks the most rows, with a clone of the buffer
-    as it was before that op (the kernel updates it in place)."""
-    best = {"walked": -1}
+    as it was before that op (the kernel updates it in place), and the sum
+    of the bounds of all the frame's draws ops, ms."""
+    best = {"walked": -1, "bound_ms": 0.0}
     original = kernels.composite_over
 
     def wrapped(src, dst, los, his):
         walked = int((his - los).clamp_min(0).sum())
+        best["bound_ms"] += bound("composite_over", (src, dst, los, his),
+                                  None)[0]
         if walked > best["walked"]:
             best.update(walked=walked, args=(src, dst.clone(), los, his))
         return original(src, dst, los, his)
@@ -332,21 +435,23 @@ def capture_largest_over(kernels, frame):
         kernels.composite_over = original
     if "args" not in best:
         fail("the layered frame did not call composite_over")
-    return best["args"], {}
+    return (best["args"], {}), best["bound_ms"]
 
 
 def capture_largest_cumsum(kernels, frame):
     """Run one frame with K8's wrapper wrapped; returns the (args, kwargs)
-    of its call on the clipped push with the most non-zero coverage
-    rows."""
-    best = {"rows": -1}
+    of its call on the clipped push with the most non-zero coverage rows,
+    and the sum of the bounds of all the frame's calls, ms."""
+    best = {"rows": -1, "bound_ms": 0.0}
     original = kernels.cumsum0
 
     def wrapped(x):
         rows = int((x != 0).any(dim=1).sum())
         if rows > best["rows"]:
             best.update(rows=rows, args=(x,))
-        return original(x)
+        out = original(x)
+        best["bound_ms"] += bound("cumsum", (x,), out)[0]
+        return out
 
     kernels.cumsum0 = wrapped
     try:
@@ -358,7 +463,7 @@ def capture_largest_cumsum(kernels, frame):
         fail("the unrolled layered frame did not call cumsum0")
     print(f"cumsum: the largest clipped push has {best['rows']} non-zero "
           f"rows of {best['args'][0].shape[0]}")
-    return best["args"], {}
+    return (best["args"], {}), best["bound_ms"]
 
 
 def fresh_args(name, kargs):
@@ -411,25 +516,79 @@ def crossed_samples(trow, starts, fidx, valid, ns) -> int:
     return int(n.clamp_min(0).sum())
 
 
+def _live_slots(incl, n_slots):
+    """Per owner of an inclusive count scan, its slots below the live
+    total min(incl[-1], n_slots)."""
+    incl = incl.long()
+    offs = torch.cat([incl.new_zeros(1), incl[:-1]])
+    total = min(int(incl[-1]), n_slots)
+    return (incl.clamp_max(total) - offs).clamp_min(0)
+
+
+def _scan_bytes(live) -> int:
+    """The bytes of the count scan that finding the owners needs: its
+    entries up to the last owner of a live slot, and the last entry (the
+    total)."""
+    owners = torch.nonzero(live).flatten()
+    read = int(owners[-1]) + 1 if owners.numel() else 0
+    return 4 * (read + int(read < live.shape[0]))
+
+
+# K2 reads 13 of a line's 16 fields: not incl (row 6) and the two zero rows
+TOUCH_LINE_ROWS = 13
+
+
+def flatten_units(spack, incl, n_lines) -> dict:
+    """K1's live work: fill slots, stroke slots, and the (stroked
+    segment, mini) pairs they fall in (7 slots per mini, counted from the
+    segment's first slot); and the bytes of its inputs it reads: the
+    columns of the segments that own a live slot (16 of a fill-only pack;
+    of a 21-column pack, 21 for a stroked segment and for a fill one its
+    16 and the stroke flag) and ``_scan_bytes``."""
+    live = _live_slots(incl, n_lines)
+    stroked = (spack[:, 19] > 0.5 if spack.shape[1] == 21
+               else torch.zeros_like(live, dtype=torch.bool))
+    st = live[stroked]
+    owners = live > 0
+    n_st = int((owners & stroked).sum())
+    fill_cols = 16 if spack.shape[1] == 16 else 17
+    return {"fill_slots": int(live[~stroked].sum()),
+            "stroke_slots": int(st.sum()),
+            "stroke_minis": int(((st + 6) // 7).sum()),
+            "read_bytes": 4 * (21 * n_st + fill_cols
+                               * (int(owners.sum()) - n_st))
+            + _scan_bytes(live)}
+
+
+def touch_units(incl, n_touches) -> dict:
+    """K2's live work: touches, and the lines they belong to; and the bytes
+    of its inputs it reads: ``TOUCH_LINE_ROWS`` fields of each of those
+    lines and ``_scan_bytes``."""
+    live = _live_slots(incl, n_touches)
+    lines = int((live > 0).sum())
+    return {"touches": int(live.sum()), "lines": lines,
+            "read_bytes": 4 * TOUCH_LINE_ROWS * lines + _scan_bytes(live)}
+
+
 def bound(name, args, out):
     """(least ms, "bytes" or "operations", the work counted) for one launch
     on these inputs: each input read once (of a composite's fragment rows,
-    the ones its walks cover) and the output written once over the HBM
+    the ones its walks cover; of K1's and K2's, the rows and scan entries
+    of the owners of live slots) and the output written once over the HBM
     rate, against the operations these inputs need over the f32 rate."""
     nbytes = _nbytes(*args, out)
     units = {}
     if name.startswith("flatten"):
-        spack, incl, n_lines = args[:3]
-        total = min(int(incl[-1]), n_lines)
-        stroke_lines = 0
-        if spack.shape[1] == 21:
-            counts = torch.diff(incl, prepend=incl[:1] * 0)
-            stroke_lines = min(int(counts[spack[:, 19] > 0.5].sum()), total)
-        ops = ((total - stroke_lines) * OPS_PER_LINE
-               + stroke_lines * OPS_PER_STROKE_LINE)
-    elif name == "expand_touches":
-        lpack, incl, n_touches = args[:3]
-        ops = min(int(incl[-1]), n_touches) * OPS_PER_TOUCH
+        units = flatten_units(*args[:3])
+        ops = (units["fill_slots"] * OPS_FILL_SLOT
+               + units["stroke_minis"] * OPS_STROKE_MINI
+               + units["stroke_slots"] * OPS_STROKE_SLOT)
+        nbytes = units["read_bytes"] + _nbytes(out)
+    elif name.startswith("expand_touches"):
+        units = touch_units(*args[1:3])
+        ops = (units["lines"] * OPS_TOUCH_LINE
+               + units["touches"] * OPS_PER_TOUCH)
+        nbytes = units["read_bytes"] + _nbytes(out)
     elif name.startswith("msaa_coverage"):
         trow, starts, fidx, backdrop, rule, valid, ns = args[:7]
         f = fidx.long()
@@ -481,30 +640,21 @@ def bound(name, args, out):
 
 def compare(name, got, ref):
     """Hold a kernel's output to its plain version's; returns the max
-    abs error. Bars: integer rows, msaa coverage and the layered draws op
-    exact, coordinates rtol 2e-6 / atol 1e-5, the other composites atol
-    2e-5, area coverage atol 1e-6 (the same op order: expected 0); K8 exact
-    on msaa clip coverage (multiples of 1/16: every prefix is exact) and
-    within 2e-6 of the largest prefix on uniform values (both sum in f64
-    and round once, in different orders)."""
+    abs error. Bars: the geometry kernels (K1, K2), msaa coverage and the
+    layered draws op exact (the same f32 ops in the same order, no
+    contraction), the other composites atol 2e-5, area coverage atol 1e-6
+    (the same op order: expected 0); K8 exact on msaa clip coverage
+    (multiples of 1/16: every prefix is exact) and within 2e-6 of the
+    largest prefix on uniform values (both sum in f64 and round once, in
+    different orders)."""
     got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
     if got.shape != ref.shape or not np.isfinite(got).all():
         fail(f"{name}: shape {got.shape} vs {ref.shape} or non-finite")
     err = float(np.abs(got - ref).max()) if got.size else 0.0
-    if name.startswith("flatten"):
-        exact, coord = [4, 5, 6, 7] + list(range(10, 16)), [0, 1, 2, 3, 8, 9]
-    elif name == "expand_touches":
-        exact, coord = [5, 6, 7], [0, 1, 2, 3, 4]
-    else:
-        exact, coord = None, None
-    if exact is not None:
-        if not np.array_equal(got[exact], ref[exact]):
-            fail(f"{name}: integer rows differ from the plain version")
-        if not np.allclose(got[coord], ref[coord], rtol=2e-6, atol=1e-5):
-            fail(f"{name}: coordinates differ (max abs err {err})")
-    elif name.startswith("msaa_coverage"):
+    if name.startswith(("flatten", "expand_touches", "msaa_coverage")):
         if not np.array_equal(got, ref):
-            fail(f"{name}: coverage differs (max abs err {err})")
+            fail(f"{name}: differs from the plain version (max abs err "
+                 f"{err}; expected bit-equal)")
     elif name == "coverage_area":
         if err > 1e-6:
             fail(f"coverage_area: max abs err {err} > 1e-6")
@@ -530,6 +680,7 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
     """Drive one frame path at full size; returns (frame thunk, launch
     counts of its first frame, its u8 image, its profile)."""
     from vello_tpu_torch.pipeline import layered
+    from vello_tpu_torch.utils.profile import profile_stages
     scene_name, aa, used = PATHS[path]
     params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing=aa)
     rs = resolve(scene.encoding, params)
@@ -553,6 +704,11 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
         first_s = time.perf_counter() - t0
         launches = dict(kernels.launches)
     prof = r.last_profile
+    # the stage ranges a frame opens: 11 flat, or the fragment stages, s19
+    # and one per op of the plan
+    prof["stage_ranges"] = (10 + int((plan["op_tab"][:, 0]
+                                      != layered.OP_NOP).sum())
+                            if path.startswith("layered") else 11)
     print(f"[{path}] first_frame_s {first_s:.4f} tier {prof['tier']} retries "
           f"{prof['retries']} n_live {prof['n_live']} launches {launches}")
     want = dict(zip(prof["tier"], caps.key()))
@@ -578,10 +734,26 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
         frame()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    print(f"[{path}] warm_ms_per_frame median {statistics.median(times):.3f} "
+    warm = statistics.median(times)
+    print(f"[{path}] warm_ms_per_frame median {warm:.3f} "
           f"min {min(times):.3f} max {max(times):.3f} over {WARM_FRAMES} "
           f"frames; peak_mem_gb "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
+    # the per-stage device time of three traced warm frames; the frame it
+    # renders first replaces the renderer's frame thunk, not ``frame``
+    with formulation(path):
+        stages = r.profile(scene, params)
+    in_frame = check_stages(path, stages, r.last_profile["kernels"], used,
+                            launches)
+    print(f"[{path}] Renderer.profile device ms per frame: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()))
+    # the device time of the frame timed above (u8 out; Renderer.profile
+    # traces the f32 frame, as the JAX package's does)
+    device_ms = profile_stages(frame)["_total"]
+    print(f"[{path}] device_ms_per_frame {device_ms:.4f} busy share "
+          f"{device_ms / warm:.3f} (Renderer.profile's f32 frame "
+          f"{stages['_total']:.4f}); in-frame kernel ms per launch "
+          + ", ".join(f"{k} {v:.4f}" for k, v in in_frame.items()))
     if profile:
         from torch.profiler import ProfilerActivity, profile as tprofile
         os.makedirs(profile, exist_ok=True)
@@ -592,21 +764,28 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
             torch.cuda.synchronize()
         table = p.key_averages().table(sort_by="cuda_time_total",
                                        row_limit=40)
-        # the device events alone (an operator's row repeats its kernels'
-        # time)
+        # two readings of one trace: the sum of the table's device rows
+        # (the stage ranges' own device spans apart) and Renderer.profile's
+        # total
         from torch.autograd import DeviceType
-        device_ms = sum(getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0))
-                        for e in p.key_averages()
-                        if e.device_type == DeviceType.CUDA) / 1e3 / 3
+        from vello_tpu_torch.utils.profile import STAGE_RE, stage_kernel_ms
+        rows = [e for e in p.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        row_ms = sum(e.self_device_time_total for e in rows
+                     if not STAGE_RE.match(e.key)) / 1e3 / 3
+        span_ms = sum(e.self_device_time_total for e in rows
+                      if STAGE_RE.match(e.key)) / 1e3 / 3
+        raw = p.profiler.kineto_results.events()
+        print(f"[{path}] one trace of 3 frames: device rows of the table "
+              f"{row_ms:.4f} ms per frame (stage spans apart, {span_ms:.4f} "
+              f"more), Renderer.profile's total "
+              f"{stage_kernel_ms(raw, 3)[1]:.4f}")
         with open(os.path.join(profile, f"frame_profile_{path}.txt"),
                   "w") as f:
             f.write(f"3 warm frames, {scene_name}-{COMPLEXITY}k {SIZE}^2 "
                     f"{aa}\n{table}\n")
-        print(f"[{path}] device_ms_per_frame {device_ms:.4f} busy share "
-              f"{device_ms / statistics.median(times):.3f}")
         print(table[:6000])
-    return frame, launches, img, prof
+    return frame, launches, img, prof, in_frame
 
 
 def main():
@@ -634,6 +813,7 @@ def main():
     from vello_tpu_torch import Renderer, RenderParams, resolve
     from vello_tpu_torch.ops import fine, kernels
     from vello_tpu_torch.scenes import test_scenes
+    from vello_tpu_torch.utils.profile import stage
 
     # 2. build
     t0 = time.perf_counter()
@@ -648,12 +828,25 @@ def main():
     # 3. the frame paths at full size
     scenes = {name: make_scene(test_scenes, name, COMPLEXITY, float(SIZE))
               for name in {scene for scene, _, _ in PATHS.values()}}
-    frames, path_launches, images, profiles = {}, {}, {}, {}
+    frames, path_launches, images, profiles, in_frame = {}, {}, {}, {}, {}
     for path, (scene_name, _, _) in PATHS.items():
-        (frames[path], path_launches[path], images[path],
-         profiles[path]) = run_path(path, kernels, Renderer, RenderParams,
+        (frames[path], path_launches[path], images[path], profiles[path],
+         in_frame[path]) = run_path(path, kernels, Renderer, RenderParams,
                                     resolve, scenes[scene_name],
                                     args.profile)
+    # the host cost of the stage ranges when no profiler records: one
+    # flag test and a shared no-op context each
+    n = 100000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with stage("s02_flatten"):
+            pass
+    range_us = (time.perf_counter() - t0) / n * 1e6
+    print(f"stage range host cost {range_us:.4f} us each with no profiler "
+          f"recording; per frame: "
+          + ", ".join(f"{p} {prof['stage_ranges']} ranges "
+                      f"{prof['stage_ranges'] * range_us:.2f} us"
+                      for p, prof in profiles.items()))
     # the unrolled formulation against the scan formulation, same scene:
     # the same bytes, and the scan frame's warm time beside the unrolled's
     scene_name, aa, _ = PATHS["layered_unrolled"]
@@ -685,12 +878,16 @@ def main():
     captured = {}
     for path in PATHS:
         if path == "layered":
-            captured["composite_over"] = capture_largest_over(
+            captured["composite_over"], frame_bound = capture_largest_over(
                 kernels, frames[path])
+            frame_share(path, "composite_over", frame_bound, in_frame,
+                        path_launches)
             continue
         if path == "layered_unrolled":
-            captured["cumsum"] = capture_largest_cumsum(kernels,
-                                                        frames[path])
+            captured["cumsum"], frame_bound = capture_largest_cumsum(
+                kernels, frames[path])
+            frame_share(path, "cumsum", frame_bound, in_frame,
+                        path_launches)
             continue
         wrappers = {KERNELS[n][1] for n in KERNELS if KERNELS[n][5] == path}
         calls = capture_calls(kernels, frames[path], sorted(wrappers))
@@ -717,6 +914,8 @@ def main():
         del got, ref
         targs = fresh_args(name, kargs)
         ms = cuda_ms(lambda: kfn(*targs, **kw), 20)
+        kernel_prof_ms, kept, launched = profiled_ms(
+            counter, lambda: kfn(*targs, **kw), 5)
         pargs = fresh_args(name, kargs)
         plain_ms = cuda_ms(lambda: pfn(*pargs, **kw), 3)
         del targs, pargs
@@ -726,10 +925,17 @@ def main():
         # torch.cumsum is the one PyTorch call that computes K8's function
         library_ms = (cuda_ms(lambda: torch.cumsum(kargs[0], 0), 3)
                       if counter == "cumsum" else None)
-        print(f"{name}: max_abs_err {err} kernel_ms {ms:.4f} plain_ms "
-              f"{plain_ms:.4f} bound_ms {bound_ms:.4f} ({bound_by}) "
-              f"library_ms {library_ms} launches {launches} ({path} frame) "
-              f"shape {tuple(kargs[0].shape)} work {work}")
+        # in-frame: the frame's launches of this kernel, per launch (K7:
+        # the mean of the plan's draws ops; the layered-tier K8 runs in no
+        # frame)
+        frame_ms = (None if name == "cumsum_layered_tier"
+                    else in_frame[path][counter])
+        print(f"{name}: max_abs_err {err} kernel_ms {ms:.4f} profiled_ms "
+              f"{kernel_prof_ms} (the trace kept {kept} of {launched} "
+              f"kernels) in_frame_profiled_ms {frame_ms} "
+              f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
+              f"({bound_by}) library_ms {library_ms} launches {launches} "
+              f"({path} frame) shape {tuple(kargs[0].shape)} work {work}")
         results.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,

@@ -378,3 +378,190 @@ def test_gpu_unrolled_layered_frame_equals_scan_frame(cuda, monkeypatch):
     np.testing.assert_array_equal(gpu, scan)
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     np.testing.assert_array_equal(gpu, cpu)
+
+
+# slot counts of 1, around a warp's 32 slots, around CTA sizes of 128 to
+# 1024 slots (K1 runs 128 threads of one slot, K2 128 threads of two) and
+# across several CTAs
+SLOT_COUNTS = [1, 31, 32, 33, 127, 128, 129, 255, 256, 257, 511, 512, 513,
+               1023, 1024, 1025, 2049, 5000]
+
+
+def _segment_pack(rng, counts, m=None):
+    """A (S, 16) segment pack, or (S, 21) with stroke columns where m is
+    given (m > 0 marks a stroked segment, 7 m slots), and its inclusive
+    count scan, as ops/flatten.flatten_fused builds them: cubics partly
+    off the viewport, offsets from the counts, path rects of live and
+    empty paths."""
+    s = len(counts)
+    incl = np.cumsum(counts).astype(np.int32)
+    cols = [rng.uniform(-200.0, 1800.0, (s, 8)),
+            counts[:, None], (incl - counts)[:, None],
+            rng.integers(0, 60, (s, 4)), rng.integers(0, 3, (s, 1)),
+            rng.integers(0, 5000, (s, 1))]
+    if m is not None:
+        hw = np.where(m > 0, rng.uniform(0.5, 12.0, s), 0.0)
+        join = (rng.uniform(size=s) < 0.6) & (m > 0)
+        jn = rng.normal(size=(s, 2)) * hw[:, None] * join[:, None]
+        cols += [hw[:, None], jn, m[:, None], join[:, None]]
+    spack = np.concatenate([np.asarray(c, np.float64) for c in cols],
+                           axis=1).astype(np.float32)
+    spack[0, 14] = 2.0                       # the first path is live
+    return spack, incl
+
+
+def _flatten_cases(rng):
+    """(name, counts, m) of segment packs at the partition's edges."""
+    fill = rng.integers(1, 6, 3000)
+    zeros = fill.copy()
+    zeros[100:1400] = 0                      # a zero run across CTAs
+    zeros[2000:2010] = 0
+    zeros[-300:] = 0                         # the padding tail
+    long = fill.copy()
+    long[500] = 64                           # MAX_LINES_PER_SEG
+    long[1200] = 2600                        # across 2 CTA boundaries
+    m = np.where(rng.uniform(size=3000) < 0.5, rng.integers(1, 28, 3000),
+                 0)
+    m[700] = 400                             # 2800 slots: across 2 CTAs
+    m[701:760] = 0
+    st = np.where(m > 0, 7 * m, fill)
+    st[1500:1800] = 0                        # zero run, stroked and not
+    m[1500:1800] = np.where(m[1500:1800] > 0, 1, 0)
+    runs = _warp_zero_runs(fill)
+    return [("fill", fill, None), ("zero_runs", zeros, None),
+            ("long_segments", long, None), ("one_segment", fill[:1], None),
+            ("stroke", st, m), ("one_stroke_segment", np.array([7 * 9]),
+                                np.array([9])),
+            ("stroke_zero_tail", np.concatenate([st, np.zeros(50, int)]),
+             np.concatenate([m, np.zeros(50, int)])),
+            ("warp_zero_runs", runs, None),
+            ("few_segments", fill[:33], None)]
+
+
+def _warp_zero_runs(counts):
+    """Counts with zero runs of 31, 32, 33 and 64 owners after owners at
+    several offsets, so that a warp's 32-owner window of the scan ends
+    just before, on and just past the next owner with a slot."""
+    out = counts.copy()
+    at = 40
+    for run in (31, 32, 33, 64, 31, 32, 33):
+        out[at:at + run] = 0
+        at += run + 1 + at % 7
+    return out
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_flatten_kernel_partition_edges(cuda, case):
+    """K1 against its plain version, bit for bit, at the edges of the
+    slot partition: zero-count runs in the middle and the tail and runs
+    around a warp's 32-owner window, owners whose slots cross two and
+    more CTAs (a 64-line segment, a 2600-line one, a 400-mini stroke),
+    one segment and 33, 16 and 21 columns, and slot counts of 1, around
+    CTA sizes and past the total."""
+    rng = np.random.default_rng(100 + case)
+    name, counts, m = _flatten_cases(rng)[case]
+    spack, incl = _segment_pack(rng, counts, m)
+    total = int(incl[-1])
+    args = (torch.from_numpy(spack).to(cuda), torch.from_numpy(incl).to(cuda))
+    for n_lines in SLOT_COUNTS + [total, total + 3000]:
+        kernels.reset_launches()
+        got = kernels.flatten_lines(*args, n_lines, 1617.0, 1600.0)
+        assert kernels.launches["flatten"] == 1
+        ref = kernels.flatten_lines_plain(*args, n_lines, 1617.0, 1600.0)
+        assert torch.equal(got, ref), (name, n_lines)
+
+
+def test_flatten_kernel_inconsistent_offsets(cuda):
+    """Stroke slots whose offset column disagrees with the count scan (no
+    caller builds such a pack) still equal the plain version: the kernel
+    computes what the plain version computes for any pack."""
+    rng = np.random.default_rng(7)
+    m = rng.integers(1, 9, 400)
+    spack, incl = _segment_pack(rng, 7 * m, m)
+    spack[::3, 9] += rng.integers(-9, 9, spack[::3].shape[0])
+    args = (torch.from_numpy(spack).to(cuda), torch.from_numpy(incl).to(cuda))
+    for n_lines in (1025, int(incl[-1]) + 100):
+        assert torch.equal(
+            kernels.flatten_lines(*args, n_lines, 800.0, 700.0),
+            kernels.flatten_lines_plain(*args, n_lines, 800.0, 700.0))
+
+
+def _line_pack(rng, counts):
+    """A (16, N) line pack as tiling.make_touches_from_linepack builds it:
+    downward lines, partly vertical, horizontal or on tile boundaries,
+    offsets from the counts, live and dead lines, path rects."""
+    n = len(counts)
+    incl = np.cumsum(counts).astype(np.int32)
+    x0 = rng.uniform(0.0, 1600.0, n)
+    y0 = rng.uniform(0.0, 1600.0, n)
+    x1 = x0 + rng.normal(0.0, 40.0, n)
+    y1 = y0 + np.abs(rng.normal(0.0, 40.0, n))
+    x1[::7] = x0[::7]                        # vertical
+    y1[3::11] = y0[3::11]                    # horizontal
+    y0[5::13] = np.floor(y0[5::13] / 16.0) * 16.0   # on a tile row
+    x1[9::17] = x0[9::17] + 16.0 * 300       # long: many touches
+    tx0 = np.floor(np.minimum(x0, x1) / 16.0) - rng.integers(0, 2, n)
+    ty0 = np.floor(y0 / 16.0)
+    tx1 = np.ceil(np.maximum(x0, x1) / 16.0) + rng.integers(0, 2, n)
+    ty1 = np.ceil(y1 / 16.0) + 1
+    rows = [x0, y0, x1, y1, np.where(rng.uniform(size=n) < 0.5, 1.0, -1.0),
+            incl - counts, incl, (rng.uniform(size=n) < 0.9) * 1.0,
+            tx0, ty0, tx1, ty1, tx1 - tx0, rng.integers(0, 9000, n),
+            np.zeros(n), np.zeros(n)]
+    rows[7][0] = 1.0                         # the first line is live
+    return np.stack(rows).astype(np.float32), incl
+
+
+@pytest.mark.parametrize("case", ["ones", "zero_runs", "long_lines",
+                                  "one_line", "warp_zero_runs",
+                                  "few_lines"])
+def test_touch_kernel_partition_edges(cuda, case):
+    """K2 against its plain version, bit for bit, at the edges of the
+    slot partition: zero-count runs in the middle and the tail and runs
+    around a warp's 32-owner window, lines of 101 and 1500 touches across
+    two and more CTAs, one line and 31, and slot counts of 1, around CTA
+    sizes and past the total."""
+    rng = np.random.default_rng({"ones": 0, "zero_runs": 1,
+                                 "long_lines": 2, "one_line": 3,
+                                 "warp_zero_runs": 4,
+                                 "few_lines": 5}[case])
+    counts = rng.integers(1, 4, 4000)
+    if case == "zero_runs":
+        counts[300:1500] = 0
+        counts[-500:] = 0
+    elif case == "warp_zero_runs":
+        counts = _warp_zero_runs(counts)
+    elif case == "few_lines":
+        counts = counts[:31]
+    elif case == "long_lines":
+        counts[1000] = 101
+        counts[2000] = 1500
+    elif case == "one_line":
+        counts = np.array([1500])
+    lpack, incl = _line_pack(rng, counts)
+    args = (torch.from_numpy(lpack).to(cuda), torch.from_numpy(incl).to(cuda))
+    total = int(incl[-1])
+    for n_touches in SLOT_COUNTS + [total, total + 3000]:
+        kernels.reset_launches()
+        got = kernels.expand_touches(*args, n_touches)
+        assert kernels.launches["expand_touches"] == 1
+        ref = kernels.expand_touches_plain(*args, n_touches)
+        assert torch.equal(got, ref), (case, n_touches)
+
+
+def test_renderer_profile_names_the_stages(cuda):
+    """Renderer.profile on the card: device ms per stage named sNN_*, the
+    stages cover all but 5% of the device time, and K1's and K2's kernels
+    fall under s02_flatten and s03_touch_expand."""
+    r = Renderer(device=cuda)
+    stages = r.profile(filled_mmark(4, 512.0),
+                       RenderParams(512, 512, antialiasing="msaa16"))
+    named = {k for k in stages if not k.startswith("_")}
+    assert {"s02_flatten", "s03_touch_expand", "s08_coverage_assembly",
+            "s10_composite"} <= named
+    assert stages["_other"] <= 0.05 * stages["_total"]
+    split = r.last_profile["kernels"]
+    for kernel, stage in (("flatten_kernel", "s02_flatten"),
+                          ("expand_touches_kernel", "s03_touch_expand")):
+        where = {st for st, k in split if kernel in k}
+        assert where == {stage}, (kernel, where)

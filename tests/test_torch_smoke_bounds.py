@@ -1,0 +1,151 @@
+"""The work counts behind ``chip_smoke.py``'s bounds against brute-force
+counts on small inputs: K1's live fill slots, stroke slots and (stroked
+segment, mini) pairs, K2's live touches and the lines they fall in, the
+input bytes K1 and K2 read (the owners' columns and scan entries), K5's
+crossed tile rows and K3's crossed sample rows (the sample rows at
+y + (s + 0.5) / ns of every tile row y)."""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402
+
+
+def _owners(incl, n_slots):
+    """Brute force: (slot, owner, slot - owner's offset) of every live
+    slot, walking the counts."""
+    out, p = [], 0
+    for s, hi in enumerate(incl):
+        while p < hi and p < n_slots:
+            lo = incl[s - 1] if s else 0
+            out.append((p, s, p - lo))
+            p += 1
+    return out
+
+
+def _scan_bytes(owners, n):
+    """Brute force: the scan entries up to the last owner, and the total."""
+    read = set(range(max(owners) + 1)) if owners else set()
+    return 4 * len(read | {n - 1})
+
+
+def _counts(rng, n, zero_runs):
+    c = rng.integers(1, 30, n)
+    if zero_runs:
+        c[rng.uniform(size=n) < 0.3] = 0
+        c[n // 3:n // 3 + 5] = 0
+        c[-4:] = 0
+    return c
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("cap_frac", [0.5, 1.0, 2.0])
+def test_flatten_units_equal_a_brute_force_count(seed, cap_frac):
+    rng = np.random.default_rng(seed)
+    n = 60
+    stroked = rng.uniform(size=n) < 0.5
+    m = rng.integers(1, 5, n)
+    counts = np.where(stroked, 7 * m, _counts(rng, n, seed > 0))
+    if seed == 2:
+        counts[::9] = 0                    # zero-count stroked segments
+    incl = np.cumsum(counts).astype(np.int32)
+    n_lines = max(int(incl[-1] * cap_frac), 1)
+    spack = np.zeros((n, 21), np.float32)
+    spack[:, 19] = np.where(stroked, m, 0)
+    want = {"fill_slots": 0, "stroke_slots": 0}
+    minis = set()
+    for _, s, sub in _owners(incl, n_lines):
+        if stroked[s]:
+            want["stroke_slots"] += 1
+            minis.add((s, sub // 7))
+        else:
+            want["fill_slots"] += 1
+    want["stroke_minis"] = len(minis)
+    owners = {s for _, s, _ in _owners(incl, n_lines)}
+    scan = _scan_bytes(owners, n)
+    want["read_bytes"] = 4 * sum(21 if stroked[s] else 17
+                                 for s in owners) + scan
+    got = chip_smoke.flatten_units(torch.from_numpy(spack),
+                                   torch.from_numpy(incl), n_lines)
+    assert got == want
+    fill_only = chip_smoke.flatten_units(torch.from_numpy(spack[:, :16]),
+                                         torch.from_numpy(incl), n_lines)
+    assert fill_only == {"fill_slots": want["fill_slots"]
+                         + want["stroke_slots"], "stroke_slots": 0,
+                         "stroke_minis": 0,
+                         "read_bytes": 4 * 16 * len(owners) + scan}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("cap_frac", [0.4, 1.0, 3.0])
+def test_touch_units_equal_a_brute_force_count(seed, cap_frac):
+    rng = np.random.default_rng(10 + seed)
+    incl = np.cumsum(_counts(rng, 80, seed > 0)).astype(np.int32)
+    n_touches = max(int(incl[-1] * cap_frac), 1)
+    live = _owners(incl, n_touches)
+    got = chip_smoke.touch_units(torch.from_numpy(incl), n_touches)
+    lines = {s for _, s, _ in live}
+    assert got == {"touches": len(live), "lines": len(lines),
+                   "read_bytes": 4 * 13 * len(lines)
+                   + _scan_bytes(lines, incl.shape[0])}
+
+
+def test_no_live_slot_reads_only_the_total():
+    incl = torch.zeros(9, dtype=torch.int32)
+    assert chip_smoke.touch_units(incl, 5)["read_bytes"] == 4
+    assert chip_smoke.flatten_units(torch.zeros((9, 16)), incl,
+                                    5)["read_bytes"] == 4
+
+
+def _fragments(seed, t=300, f=60):
+    rng = np.random.default_rng(seed)
+    fid = np.sort(rng.integers(0, f, t))
+    trow = np.zeros((t, 8), np.float32)
+    trow[:, 0:4] = rng.uniform(-1, 17, (t, 4))
+    trow[::5, 1] = np.floor(trow[::5, 1])        # on a tile row
+    trow[::7, 3] = trow[::7, 1]                  # horizontal
+    starts = np.searchsorted(fid, np.arange(f + 1)).astype(np.int32)
+    valid = rng.uniform(size=f) < 0.8
+    return trow, starts, valid, rng
+
+
+def test_crossed_rows_equal_a_brute_force_count():
+    trow, starts, valid, _ = _fragments(3)
+    want = 0
+    for fr in range(len(valid)):
+        if not valid[fr]:
+            continue
+        for t in trow[starts[fr]:starts[fr + 1]]:
+            for row in range(16):
+                y = np.float32(t[1] - np.float32(row))
+                y1 = np.float32(y + np.float32(t[3] - t[1]))
+                dyc = np.float32(np.clip(y, 0, 1) - np.clip(y1, 0, 1))
+                want += dyc != 0.0
+    got = chip_smoke.crossed_rows(*(torch.from_numpy(v) for v in
+                                    (trow, starts, valid)))
+    assert got == want
+
+
+@pytest.mark.parametrize("ns", [8, 16])
+def test_crossed_samples_equal_a_brute_force_count(ns):
+    trow, starts, valid, rng = _fragments(4 + ns)
+    fidx = rng.permutation(len(valid))[:45].astype(np.int32)
+    sy = sorted({np.float32(r) + np.float32((s + 0.5) / ns)
+                 for r in range(16) for s in range(ns)})
+    assert len(sy) == 16 * ns
+    want = 0
+    for fr in fidx:
+        if not valid[fr]:
+            continue
+        for t in trow[starts[fr]:starts[fr + 1]]:
+            lo, hi = min(t[1], t[3]), max(t[1], t[3])
+            want += sum(lo <= y < hi for y in sy)
+    got = chip_smoke.crossed_samples(*(torch.from_numpy(v) for v in
+                                       (trow, starts, fidx, valid)), ns)
+    assert got == want

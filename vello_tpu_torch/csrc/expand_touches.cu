@@ -4,20 +4,25 @@
 // _expand_touch_kernel, :764): the path_count / path_tiling pair of the
 // reference in one pass.
 //
-// What bounds it on the H100: memory. Each touch slot reads its line's 14
+// What bounds it on the H100: memory. Each touch slot reads its line's 13
 // fields (the lines are shared by ~1.3 neighbouring slots, so most of the
 // reads hit L1/L2) and writes 32 bytes; ~200 flops of DDA stepping and tile
-// clipping per slot do not come near the card's rate. At T = 655360 slots
-// that is ~40 MB of traffic.
+// clipping per slot do not come near the card's rate. On the 30k-path
+// msaa16 frame (596404 touches of 468392 lines) that is 47 MB of traffic.
 //
-// Design: one thread per touch slot p. The TPU kernel DMA'd a 128-aligned
-// line window per 1024-slot block and selected each slot's line with a
-// one-hot MXU product; here each thread binary-searches the inclusive
-// touch-count scan for offs <= p < incl and reads its line's column of the
-// (16, N) pack. The staircase step i = p - offs recomputes the whole DDA
-// from the line's endpoints, so no state passes between threads. Same f32
-// op order as _expand_touch_kernel, built with --fmad=false, so the tile
-// ids and backdrop deltas agree with the JAX package bit for bit. Dead
+// Design: kPerThread touch slots per thread, a warp's 32 consecutive slots
+// at a time. The TPU kernel DMA'd a 128-aligned line window per 1024-slot
+// block and selected each slot's line with a one-hot MXU product; here
+// each warp finds the lines owning its 32 slots (offs <= p < incl) with one
+// 32-way search of the inclusive touch-count scan and a search over the
+// lanes' registers (vt::warp_upper_bound: ~5 dependent loads where a
+// binary search per thread waits on ~20), and each thread reads its line's
+// column of the (16, N) pack. The staircase step i = p - offs recomputes
+// the whole DDA from the line's endpoints, so no state passes between
+// threads (a line has 1.3-1.4 touches on the frames measured: sharing its
+// setup does not pay, PERF.md §6). Same f32 op order as
+// _expand_touch_kernel, built with --fmad=false, so the tile ids and
+// backdrop deltas agree with the JAX package bit for bit. Dead
 // slots carry DUMP_TILE = 2^30 and the 1e9 y_edge.
 
 #include <cuda_runtime.h>
@@ -33,18 +38,20 @@ __device__ __forceinline__ float signf(float x) {
   return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 
-__global__ void expand_touches_kernel(const float* __restrict__ lpack,
-                                      const int* __restrict__ incl,
-                                      int n_lines, float* __restrict__ pay,
-                                      int n_touches) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_touches) return;
-  int total = incl[n_lines - 1];
+// the work shape (the fastest of a sweep, PERF.md §6): threads per CTA,
+// and slots per thread, a warp's 32 consecutive slots at a time
+constexpr int kThreads = 128;
+constexpr int kPerThread = 2;
+
+// touch slot p < n_touches, owned by line l when p < total
+__device__ __forceinline__ void touch_slot(const float* __restrict__ lpack,
+                                           int n_lines, int l,
+                                           float* __restrict__ pay,
+                                           int n_touches, int p, int total) {
   float r[14];
 #pragma unroll
   for (int k = 0; k < 14; ++k) r[k] = 0.0f;
   if (p < total) {
-    int l = vt::upper_bound(incl, n_lines, p);
 #pragma unroll
     for (int k = 0; k < 14; ++k) r[k] = lpack[(size_t)k * n_lines + l];
   }
@@ -151,14 +158,31 @@ __global__ void expand_touches_kernel(const float* __restrict__ lpack,
   for (int k = 0; k < 8; ++k) pay[(size_t)k * n_touches + p] = o[k];
 }
 
+__global__ void __launch_bounds__(kThreads)
+    expand_touches_kernel(const float* __restrict__ lpack,
+                          const int* __restrict__ incl, int n_lines,
+                          float* __restrict__ pay, int n_touches) {
+  const int lane = threadIdx.x & 31;
+  const int base = (blockIdx.x * kThreads + threadIdx.x - lane) * kPerThread;
+  const int total = incl[n_lines - 1];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    int p0 = base + 32 * j;  // the same for the whole warp
+    if (p0 >= n_touches) break;
+    int p = p0 + lane;
+    int l = vt::warp_upper_bound(incl, n_lines, p0, p, total);
+    if (p < n_touches) touch_slot(lpack, n_lines, l, pay, n_touches, p, total);
+  }
+}
+
 }  // namespace
 
 extern "C" int vt_expand_touches(const float* lpack, const int* incl,
                                  int n_lines, float* pay, int n_touches,
                                  cudaStream_t stream) {
-  const int threads = 256;
-  int blocks = (n_touches + threads - 1) / threads;
-  expand_touches_kernel<<<blocks, threads, 0, stream>>>(lpack, incl, n_lines,
-                                                        pay, n_touches);
+  const int per_cta = kThreads * kPerThread;
+  int blocks = (n_touches + per_cta - 1) / per_cta;
+  expand_touches_kernel<<<blocks, kThreads, 0, stream>>>(lpack, incl, n_lines,
+                                                         pay, n_touches);
   return (int)cudaGetLastError();
 }

@@ -4,16 +4,21 @@
 // _flatten_kernel, :570): the fill rows and the stroke rows (device stroke
 // expansion, :608-633).
 //
-// What bounds it on the H100: memory. Each line slot reads one 64-byte
-// segment row (plus ~log2(S) 4-byte probes of the count scan, which stay
-// in L1/L2) and writes 64 bytes; the ~150 flops of cubic evaluation, trim
-// and clamp per slot are far below the card's rate. At L = 491520 slots
-// that is ~63 MB moved, tens of microseconds at HBM speed.
+// What bounds it on the H100: memory. Each line slot reads its segment's
+// row (16 columns, or 21 with the stroke columns, shared by the segment's
+// slots; plus a warp's few probes of the count scan, which stay in L1/L2)
+// and writes 64 bytes; the ~180 flops of cubic evaluation, trim and clamp
+// per slot are far below the card's rate. On the 30k-path msaa16 frame
+// (468392 live slots of L = 491520) that is 40 MB moved.
 //
-// Design: one thread per line slot p. The TPU kernel found each slot's
-// segment with a 128-aligned segment window and a one-hot MXU row select
-// (exact only through a 3-pass bf16 split); here each thread binary-searches
-// the inclusive count scan for offs <= p < incl and loads its row directly.
+// Design: kPerThread line slots per thread, a warp's 32 consecutive slots
+// at a time. The TPU kernel found each slot's segment with a 128-aligned
+// segment window and a one-hot MXU row select (exact only through a 3-pass
+// bf16 split); here each warp finds the segments owning its 32 slots
+// (offs <= p < incl) with one 32-way search of the inclusive count scan
+// and a search over the lanes' registers (vt::warp_upper_bound: ~4
+// dependent loads where a binary search per thread waits on ~17), and each
+// thread loads its row directly.
 // The output keeps the (16, L) row layout, so the 32 threads of a warp
 // store each row as one 128-byte transaction. Every op follows the f32 op
 // order of _flatten_kernel and is built with --fmad=false: the floors and
@@ -100,22 +105,24 @@ __device__ void stroke_slot_line(float p0x, float p0y, float p1x, float p1y,
   *by = sel7(e, p1y + ny, p1y - ny, p0y - ny, p0y + ny, t1y, t2y, p1y);
 }
 
-// kCols: 16 (fill rows only) or 21 (with the stroke columns); a fill-only
-// pack compiles without the stroke branch
+// the work shape (the fastest of a sweep, PERF.md §6): threads per CTA,
+// and slots per thread, a warp's 32 consecutive slots at a time
+constexpr int kThreads = 128;
+constexpr int kPerThread = 1;
+
+// line slot p < n_lines, owned by segment seg when p < total. kCols: 16
+// (fill rows only) or 21 (with the stroke columns); a fill-only pack
+// compiles without the stroke branch
 template <int kCols>
-__global__ void flatten_kernel(const float* __restrict__ spack,
-                               const int* __restrict__ incl, int n_segs,
-                               float* __restrict__ out, int n_lines, float hi,
-                               float height) {
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_lines) return;
-  int total = incl[n_segs - 1];
+__device__ __forceinline__ void line_slot(const float* __restrict__ spack,
+                                          int seg, float* __restrict__ out,
+                                          int n_lines, float hi, float height,
+                                          int p, int total) {
   float r[21];
 #pragma unroll
   for (int k = 0; k < 21; ++k) r[k] = 0.0f;
   if (p < total) {
-    const float* row =
-        spack + (size_t)vt::upper_bound(incl, n_segs, p) * kCols;
+    const float* row = spack + (size_t)seg * kCols;
 #pragma unroll
     for (int k = 0; k < kCols; ++k) r[k] = row[k];
   }
@@ -205,21 +212,42 @@ __global__ void flatten_kernel(const float* __restrict__ spack,
   for (int k = 0; k < 16; ++k) out[(size_t)k * n_lines + p] = o[k];
 }
 
+template <int kCols>
+__global__ void __launch_bounds__(kThreads)
+    flatten_kernel(const float* __restrict__ spack,
+                   const int* __restrict__ incl, int n_segs,
+                   float* __restrict__ out, int n_lines, float hi,
+                   float height) {
+  const int lane = threadIdx.x & 31;
+  const int base = (blockIdx.x * kThreads + threadIdx.x - lane) * kPerThread;
+  const int total = incl[n_segs - 1];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    int p0 = base + 32 * j;  // the same for the whole warp
+    if (p0 >= n_lines) break;
+    int p = p0 + lane;
+    int seg = vt::warp_upper_bound(incl, n_segs, p0, p, total);
+    if (p < n_lines) {
+      line_slot<kCols>(spack, seg, out, n_lines, hi, height, p, total);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int vt_flatten(const float* spack, const int* incl, int n_segs,
                           int cols, float* out, int n_lines, float hi,
                           float height, cudaStream_t stream) {
-  const int threads = 256;
-  int blocks = (n_lines + threads - 1) / threads;
+  const int per_cta = kThreads * kPerThread;
+  int blocks = (n_lines + per_cta - 1) / per_cta;
   if (cols == 16) {
-    flatten_kernel<16><<<blocks, threads, 0, stream>>>(spack, incl, n_segs,
-                                                       out, n_lines, hi,
-                                                       height);
+    flatten_kernel<16><<<blocks, kThreads, 0, stream>>>(spack, incl, n_segs,
+                                                        out, n_lines, hi,
+                                                        height);
   } else if (cols == 21) {
-    flatten_kernel<21><<<blocks, threads, 0, stream>>>(spack, incl, n_segs,
-                                                       out, n_lines, hi,
-                                                       height);
+    flatten_kernel<21><<<blocks, kThreads, 0, stream>>>(spack, incl, n_segs,
+                                                        out, n_lines, hi,
+                                                        height);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -20,6 +20,7 @@ from ..encoding.resolve import PAINT_IMAGE, ResolvedScene, resolve
 from ..pipeline import layered
 from ..pipeline.render import PipelineStatic, get_pipeline
 from ..scene import Scene
+from ..utils.profile import profile_stages
 
 # Attribute of a ResolvedScene under which the port caches its device
 # tensors (the JAX Renderer caches jax arrays under ``_device_bufs``).
@@ -118,7 +119,7 @@ class Renderer:
     version; "cuda" runs the CUDA kernels and raises when there is no
     GPU). ``last_profile`` holds the tier, retries, live-fragment cap, the
     wall time of the last render up to its readback and the readback's
-    time."""
+    time; ``profile`` gives the per-stage device time of a frame."""
 
     def __init__(self, device="cuda", max_retries: int = 3):
         self.device = torch.device(device)
@@ -139,6 +140,21 @@ class Renderer:
         """Render once and discard the image: builds the kernels and leaves
         the frame behind ``frame_thunk``."""
         self.render(scene, params)
+
+    def profile(self, scene: Scene, params: RenderParams) -> dict:
+        """Per-stage device time of the real frame, ms per frame: renders
+        once, then traces three warm frames with torch.profiler and sums
+        each kernel's time under its stage (``utils.profile``), plus
+        "_total" and "_other". Returns {} when there is no device trace
+        (a CPU renderer). Sets ``last_profile`` to {"stages", "tier"}, as
+        the JAX Renderer does, and "kernels": {(stage, kernel name): ms}."""
+        self.render(scene, params)
+        tier = self.last_profile["tier"]
+        stages, split, _ = (profile_stages(self._frame, detail=True)
+                            if self.device.type == "cuda" else ({}, {}, {}))
+        self.last_profile = {"stages": stages, "tier": tier,
+                             "kernels": split}
+        return stages
 
     def render(self, scene: Scene, params: RenderParams) -> np.ndarray:
         self._check_params(params)

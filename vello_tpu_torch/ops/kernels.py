@@ -228,9 +228,17 @@ def _check_rows_aligned(trow):
 
 def _launch(name, fn, *args):
     """Call a C launcher with tensors passed as device pointers, on the
-    current stream; raise on a failed launch, count a good one."""
+    current stream; raise on a failed launch, count a good one. Under a
+    profiler the call runs in an op-level range ``vt_<name>``: the profiler
+    links a kernel to the op that launched it, and a user range such as a
+    pipeline stage is not an op."""
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    if torch.autograd._profiler_enabled():
+        with torch._C._profiler._RecordFunctionFast(f"vt_{name}"):
+            rc = fn(*args, stream)
+    else:
+        rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     launches[name] += 1

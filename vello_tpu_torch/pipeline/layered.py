@@ -54,6 +54,7 @@ from ..ops import blend as blend_ops
 from ..ops import kernels, segmented
 from ..ops.filters import FILTER_NONE, apply_filter_dyn
 from ..ops.segmented import lookup_sorted, rank_sorted
+from ..utils.profile import stage
 from .render import (PipelineStatic, check_supported, prepare_fragments,
                      tiles_to_image)
 
@@ -376,28 +377,45 @@ def _render_layered(bufs: dict, plan_dyn: dict, static: PipelineStatic,
     WT, HT = static.width_tiles, static.height_tiles
     n_loc = WT * HT
     dev = fr["g_s"].device
-    # (gtile, path) key of the sorted stream; P + 1 exceeds every path
-    # index, so the key is ascending along the stream
-    P = bufs["paint_pack"].shape[0]
-    skey = fr["g_s"].long() * (P + 1) + fr["tpath_s"]
-    if "path_clipalpha" in plan_dyn:
-        _apply_clip_chains(fr, skey, P + 1, plan_dyn["path_clipalpha"])
-    src_s, cov_s = fr["src_s"], fr["coverage_s"]
-    tile_key = torch.arange(n_loc, dtype=torch.int64, device=dev) * (P + 1)
-
     tab = plan_dyn["op_tab"]
     op_alpha = plan_dyn["op_alpha"]
     op_filter = plan_dyn["op_filter"]
-    # every draws op's per-tile walk bounds from one searchsorted
-    draws = [i for i in range(tab.shape[0])
-             if tab[i, 0] == OP_DRAWS and tab[i, 4] > tab[i, 3]]
-    walk = {}
-    if draws:
-        lohi = torch.from_numpy(tab[draws, 3:5].astype(np.int64)).to(dev)
-        w = rank_sorted(skey, (tile_key[None, None, :]
-                               + lohi[:, :, None]).reshape(-1))
-        w = w.reshape(len(draws), 2, n_loc)
-        walk = {i: (w[j, 0], w[j, 1]) for j, i in enumerate(draws)}
+    # (the port's s19 also holds the clip-chain lookups, which the JAX
+    # package runs outside its scopes)
+    with stage("s19_rank_bounds"):
+        # (gtile, path) key of the sorted stream; P + 1 exceeds every
+        # path index, so the key is ascending along the stream
+        P = bufs["paint_pack"].shape[0]
+        skey = fr["g_s"].long() * (P + 1) + fr["tpath_s"]
+        if "path_clipalpha" in plan_dyn:
+            _apply_clip_chains(fr, skey, P + 1, plan_dyn["path_clipalpha"])
+        src_s, cov_s = fr["src_s"], fr["coverage_s"]
+        tile_key = torch.arange(n_loc, dtype=torch.int64,
+                                device=dev) * (P + 1)
+        # every draws op's per-tile walk bounds from one searchsorted
+        draws = [i for i in range(tab.shape[0])
+                 if tab[i, 0] == OP_DRAWS and tab[i, 4] > tab[i, 3]]
+        walk = {}
+        if draws:
+            lohi = torch.from_numpy(tab[draws, 3:5].astype(np.int64)).to(dev)
+            w = rank_sorted(skey, (tile_key[None, None, :]
+                                   + lohi[:, :, None]).reshape(-1))
+            w = w.reshape(len(draws), 2, n_loc)
+            walk = {i: (w[j, 0], w[j, 1]) for j, i in enumerate(draws)}
+        if not unrolled:
+            # every clipped push's clip row per tile, from one searchsorted
+            pushes = [i for i in range(tab.shape[0])
+                      if tab[i, 0] == OP_PUSH and tab[i, 5] >= 0]
+            clip_rows = {}
+            if pushes:
+                cix = torch.from_numpy(tab[pushes, 5].astype(np.int64)).to(
+                    dev)
+                idx, found = lookup_sorted(skey, (tile_key[None, :]
+                                                  + cix[:, None]).reshape(-1))
+                idx = idx.reshape(len(pushes), n_loc)
+                found = found.reshape(len(pushes), n_loc)
+                clip_rows = {i: (idx[j], found[j])
+                             for j, i in enumerate(pushes)}
     if unrolled:
         # the clip path's coverage rows, zero elsewhere, summed per tile
         # (the (tile, path) fragment is unique, so the sum selects it)
@@ -407,18 +425,6 @@ def _render_layered(bufs: dict, plan_dyn: dict, static: PipelineStatic,
             return segmented.segment_sum_sorted(covs, fr["g_s"],
                                                 n_loc)[:, None, :]
     else:
-        # every clipped push's clip row per tile, from one searchsorted
-        pushes = [i for i in range(tab.shape[0])
-                  if tab[i, 0] == OP_PUSH and tab[i, 5] >= 0]
-        clip_rows = {}
-        if pushes:
-            cix = torch.from_numpy(tab[pushes, 5].astype(np.int64)).to(dev)
-            idx, found = lookup_sorted(skey, (tile_key[None, :]
-                                              + cix[:, None]).reshape(-1))
-            idx = idx.reshape(len(pushes), n_loc)
-            found = found.reshape(len(pushes), n_loc)
-            clip_rows = {i: (idx[j], found[j]) for j, i in enumerate(pushes)}
-
         def clip_cov(i):
             idx, found = clip_rows[i]
             return torch.where(found[:, None], cov_s[idx], 0.0)[:, None, :]
@@ -430,24 +436,27 @@ def _render_layered(bufs: dict, plan_dyn: dict, static: PipelineStatic,
     for i in range(tab.shape[0]):
         kind = int(tab[i, 0])
         if kind == OP_DRAWS:
-            if i in walk:
-                kernels.composite_over(src_s, stack[-1], *walk[i])
+            with stage("s20_op_draws"):
+                if i in walk:
+                    kernels.composite_over(src_s, stack[-1], *walk[i])
         elif kind == OP_PUSH:
-            stack.append(torch.zeros((n_loc, 4, NPX), dtype=torch.float32,
-                                     device=dev))
-            clips.append(clip_cov(i) if tab[i, 5] >= 0 else None)
-            alphas.append(float(op_alpha[i]))
+            with stage("s21_op_push"):
+                stack.append(torch.zeros((n_loc, 4, NPX),
+                                         dtype=torch.float32, device=dev))
+                clips.append(clip_cov(i) if tab[i, 5] >= 0 else None)
+                alphas.append(float(op_alpha[i]))
         elif kind == OP_POP:
-            top, c, alpha = stack.pop(), clips.pop(), alphas.pop()
-            mix, compose = int(tab[i, 1]), int(tab[i, 2])
-            if mix < 0:            # unbalanced layer: content discarded
-                continue
-            fkind = int(op_filter[i, 0])
-            if fkind != FILTER_NONE:
-                top = _canvas_to_tiles(apply_filter_dyn(
-                    _tiles_to_canvas(top, WT, HT), fkind, op_filter[i, 1:]),
-                    WT, HT)
-            stack[-1] = _pop(stack[-1], top, c, alpha, mix, compose)
+            with stage("s22_op_pop"):
+                top, c, alpha = stack.pop(), clips.pop(), alphas.pop()
+                mix, compose = int(tab[i, 1]), int(tab[i, 2])
+                if mix < 0:        # unbalanced layer: content discarded
+                    continue
+                fkind = int(op_filter[i, 0])
+                if fkind != FILTER_NONE:
+                    top = _canvas_to_tiles(apply_filter_dyn(
+                        _tiles_to_canvas(top, WT, HT), fkind,
+                        op_filter[i, 1:]), WT, HT)
+                stack[-1] = _pop(stack[-1], top, c, alpha, mix, compose)
     img = tiles_to_image(stack[0], static.width, static.height)
     return (to_rgba8(img) if u8_out else img), fr["overflow"]
 

@@ -29,6 +29,7 @@ from ..encoding.config import TILE_H, TILE_W, Capacities
 from ..ops import fine, kernels, tiling
 from ..ops import flatten as flatten_ops
 from ..ops.segmented import segment_starts, segment_sum_from_starts
+from ..utils.profile import stage
 
 
 @dataclass(frozen=True)
@@ -92,118 +93,133 @@ def prepare_fragments(bufs: dict, static: PipelineStatic,
     W = float(WT_alloc * TILE_W)
     F = caps.n_path_tiles
 
-    rects = tiling.tile_alloc(bufs["path_rect"], WT_alloc, HT)
-    overflow_tiles = (rects["total_tiles"] > F).to(torch.int32)
-    ff = flatten_ops.flatten_fused(
-        bufs["seg_pts"], bufs["seg_kind"], bufs["seg_path"], bufs["n_segs"],
-        caps.n_lines, W, H, tiling.rect_pack(rects),
-        seg_hw=bufs["seg_hw"] if static.has_stroke else None,
-        seg_join=bufs["seg_join"] if static.has_stroke else None,
-        max_lines=static.max_lines)
-    touches = tiling.make_touches_from_linepack(
-        ff["linepack"], ff["total_lines"], caps.n_touches, caps.n_edges,
-        has_edge=static.has_edge)
-    geom_overflow = ff["overflow"] + 2 * touches["overflow_edges"]
+    with stage("s01_tile_alloc"):
+        rects = tiling.tile_alloc(bufs["path_rect"], WT_alloc, HT)
+        overflow_tiles = (rects["total_tiles"] > F).to(torch.int32)
+    with stage("s02_flatten"):
+        ff = flatten_ops.flatten_fused(
+            bufs["seg_pts"], bufs["seg_kind"], bufs["seg_path"],
+            bufs["n_segs"], caps.n_lines, W, H, tiling.rect_pack(rects),
+            seg_hw=bufs["seg_hw"] if static.has_stroke else None,
+            seg_join=bufs["seg_join"] if static.has_stroke else None,
+            max_lines=static.max_lines)
+    with stage("s03_touch_expand"):
+        touches = tiling.make_touches_from_linepack(
+            ff["linepack"], ff["total_lines"], caps.n_touches, caps.n_edges,
+            has_edge=static.has_edge)
+        geom_overflow = ff["overflow"] + 2 * touches["overflow_edges"]
 
-    # coarse sort: touches by flat tile (order within a tile is immaterial:
-    # winding sums commute), then one row gather of the payload
-    ftile_s, tix_s = torch.sort(touches["ftile"])
-    trow = touches["pay"].T[tix_s].contiguous()            # (T, 8)
-    seg_ids = ftile_s.clamp(0, F)
-    starts = segment_starts(seg_ids, F)                    # (F+1,)
-    bd_sum = segment_sum_from_starts(trow[:, 5], starts)
-    # backdrop deltas target ftile+1: shift by one fragment
-    bd_delta = torch.cat([torch.zeros(1, dtype=torch.float32, device=dev),
-                          bd_sum[:-1]])
+    with stage("s04_coarse_sort"):
+        # touches by flat tile (order within a tile is immaterial: winding
+        # sums commute), then one row gather of the payload
+        ftile_s, tix_s = torch.sort(touches["ftile"])
+        trow = touches["pay"].T[tix_s].contiguous()        # (T, 8)
+    # (the JAX package scopes only the segment starts here; the port's
+    # stage also holds the backdrop sums and the per-tile metadata)
+    with stage("s05_segment_starts"):
+        seg_ids = ftile_s.clamp(0, F)
+        starts = segment_starts(seg_ids, F)                # (F+1,)
+        bd_sum = segment_sum_from_starts(trow[:, 5], starts)
+        # backdrop deltas target ftile+1: shift by one fragment
+        bd_delta = torch.cat([torch.zeros(1, dtype=torch.float32,
+                                          device=dev), bd_sum[:-1]])
 
-    # per flat tile: owning path and tile coordinates
-    t = torch.arange(F, dtype=torch.int32, device=dev)
-    incl = rects["base"] + rects["areas"]
-    tpath = torch.searchsorted(incl, t, side="right", out_int32=True)
-    tpath = tpath.clamp(0, caps.n_paths - 1)
-    tp = tpath.long()
-    is_clip = bufs["path_kind"][tp] != 0
-    base = rects["base"][tp]
-    stride = rects["stride"][tp].clamp_min(1)
-    tvalid = t < rects["total_tiles"]
-    if not keep_clip_paths:
-        tvalid = tvalid & ~is_clip
-    rel = t - base
-    tx = rects["tx0"][tp] + rel % stride
-    ty = rects["ty0"][tp] + rel // stride
-    rule = bufs["fill_rule"][tp]
+        # per flat tile: owning path and tile coordinates
+        t = torch.arange(F, dtype=torch.int32, device=dev)
+        incl = rects["base"] + rects["areas"]
+        tpath = torch.searchsorted(incl, t, side="right", out_int32=True)
+        tpath = tpath.clamp(0, caps.n_paths - 1)
+        tp = tpath.long()
+        is_clip = bufs["path_kind"][tp] != 0
+        base = rects["base"][tp]
+        stride = rects["stride"][tp].clamp_min(1)
+        tvalid = t < rects["total_tiles"]
+        if not keep_clip_paths:
+            tvalid = tvalid & ~is_clip
+        rel = t - base
+        tx = rects["tx0"][tp] + rel % stride
+        ty = rects["ty0"][tp] + rel // stride
+        rule = bufs["fill_rule"][tp]
 
-    # backdrop = inclusive prefix of the deltas along each tile row
-    row_start = (base + (rel // stride) * stride).long()
-    cbd = torch.cumsum(bd_delta, 0)
-    backdrop = cbd - cbd[row_start] + bd_delta[row_start]
+        # backdrop = inclusive prefix of the deltas along each tile row
+        row_start = (base + (rel // stride) * stride).long()
+        cbd = torch.cumsum(bd_delta, 0)
+        backdrop = cbd - cbd[row_start] + bd_delta[row_start]
 
+    # s06 holds what the live cull reads: area coverage of every fragment
+    # (K5), or for msaa whether a fragment has touches or a visible
+    # backdrop fill. The port's K3 computes msaa coverage at the sorted
+    # live fragments, so the JAX package's s06 kernel and s08 assembly
+    # are one launch, under s08.
     msaa = static.aa in ("msaa8", "msaa16")
-    if not msaa:
-        # exact-area coverage of every fragment, fill rule and centers
-        # threshold applied, invalid fragments 0
-        coverage = kernels.coverage_area(trow, starts, backdrop, rule, tvalid,
-                                         static.aa == "centers")
+    with stage("s06_coverage"):
+        if not msaa:
+            # exact-area coverage of every fragment, fill rule and centers
+            # threshold applied, invalid fragments 0
+            coverage = kernels.coverage_area(trow, starts, backdrop, rule,
+                                             tvalid, static.aa == "centers")
+        if static.n_live:
+            if msaa:
+                has_t = starts[1:] > starts[:-1]
+                cov_empty = fine.apply_fill_rule(backdrop, rule)
+                live = has_t | (cov_empty > 1.0 / 512.0)
+            else:
+                live = torch.amax(coverage, dim=1) > 1.0 / 512.0
 
-    # live cull; culled fragments sort past the live cap
-    n_loc = WT * HT
-    owned = tvalid & (tx < WT) & (ty >= 0) & (ty < HT)
-    overflow_live = torch.zeros((), dtype=torch.int32, device=dev)
-    if static.n_live:
+    with stage("s07_fragment_sort"):
+        # live cull; culled fragments sort past the live cap
+        n_loc = WT * HT
+        owned = tvalid & (tx < WT) & (ty >= 0) & (ty < HT)
+        overflow_live = torch.zeros((), dtype=torch.int32, device=dev)
+        if static.n_live:
+            owned = owned & live
+            overflow_live = 16 * (owned.sum() > static.n_live).to(
+                torch.int32)
+        gtile = torch.where(owned, ty * WT + tx, n_loc)
+        # (gtile, draw order) sort as one int64 key; stable, so the culled
+        # fragments' order is deterministic too
+        key = gtile.long() * caps.n_paths + tp
+        _, order = torch.sort(key, stable=True)
+        if static.n_live:
+            order = order[:static.n_live]
+        g_s = gtile[order]
+        tpath_s = tp[order]
+
+    with stage("s08_coverage_assembly"):
         if msaa:
-            # a fragment can cover pixels only if it has touches or a
-            # visible backdrop fill
-            has_t = starts[1:] > starts[:-1]
-            cov_empty = fine.apply_fill_rule(backdrop, rule)
-            live = has_t | (cov_empty > 1.0 / 512.0)
+            ns = 8 if static.aa == "msaa8" else 16
+            coverage_s = kernels.msaa_coverage(
+                trow, starts, order.to(torch.int32), backdrop, rule, tvalid,
+                ns, static.has_evenodd)
         else:
-            live = torch.amax(coverage, dim=1) > 1.0 / 512.0
-        owned = owned & live
-        overflow_live = 16 * (owned.sum() > static.n_live).to(torch.int32)
-    gtile = torch.where(owned, ty * WT + tx, n_loc)
-
-    # (gtile, draw order) sort as one int64 key; stable, so the culled
-    # fragments' order is deterministic too
-    key = gtile.long() * caps.n_paths + tp
-    _, order = torch.sort(key, stable=True)
-    if static.n_live:
-        order = order[:static.n_live]
-    g_s = gtile[order]
-    tpath_s = tp[order]
-
-    if msaa:
-        ns = 8 if static.aa == "msaa8" else 16
-        coverage_s = kernels.msaa_coverage(trow, starts, order.to(torch.int32),
-                                           backdrop, rule, tvalid, ns,
-                                           static.has_evenodd)
-    else:
-        coverage_s = coverage[order]
+            coverage_s = coverage[order]
     overflow = (geom_overflow + 4 * touches["overflow"]
                 + 8 * overflow_tiles + overflow_live)
-    prow = bufs["paint_pack"][tpath_s]
-    out = {"g_s": g_s, "tpath_s": tpath_s, "coverage_s": coverage_s,
-           "overflow": overflow,
-           # opaque solid fragments drive the occlusion walk
-           "opaque_s": (prow[:, 0] == 0.0) & (prow[:, 4] >= 1.0 - 1e-6)}
-    if solid_only(static) and not keep_clip_paths:
-        out["col_s"] = prow[:, 1:5].contiguous()
-        return out
-    # paint evaluated in sorted order: only per-fragment scalars ride the
-    # permutation, and all the paint fields ride one row gather
-    txy = torch.stack([tx, ty], dim=1)[order]
-    src = fine.eval_paints(
-        (txy[:, 0] * TILE_W).to(torch.float32),
-        (txy[:, 1] * TILE_H).to(torch.float32),
-        prow[:, 0].to(torch.int32), prow[:, 1:5], prow[:, 5:17],
-        prow[:, 17:23], prow[:, 23:31], prow[:, 31:39], bufs["ramps"],
-        bufs["atlas"], frozenset(static.kinds_present))
-    if keep_clip_paths:
-        # clip rows composite as src = 0: zero their coverage in the
-        # product (paint * 0 is the 0 the JAX package writes after it)
-        is_clip_s = prow[:, 39] != 0
-        out["opaque_s"] = out["opaque_s"] & ~is_clip_s
-        coverage_s = torch.where(is_clip_s[:, None], 0.0, coverage_s)
-    out["src_s"] = (src * coverage_s[:, None, :]).contiguous()
+    with stage("s09_paint"):
+        prow = bufs["paint_pack"][tpath_s]
+        out = {"g_s": g_s, "tpath_s": tpath_s, "coverage_s": coverage_s,
+               "overflow": overflow,
+               # opaque solid fragments drive the occlusion walk
+               "opaque_s": (prow[:, 0] == 0.0) & (prow[:, 4] >= 1.0 - 1e-6)}
+        if solid_only(static) and not keep_clip_paths:
+            out["col_s"] = prow[:, 1:5].contiguous()
+            return out
+        # paint evaluated in sorted order: only per-fragment scalars ride
+        # the permutation, and all the paint fields ride one row gather
+        txy = torch.stack([tx, ty], dim=1)[order]
+        src = fine.eval_paints(
+            (txy[:, 0] * TILE_W).to(torch.float32),
+            (txy[:, 1] * TILE_H).to(torch.float32),
+            prow[:, 0].to(torch.int32), prow[:, 1:5], prow[:, 5:17],
+            prow[:, 17:23], prow[:, 23:31], prow[:, 31:39], bufs["ramps"],
+            bufs["atlas"], frozenset(static.kinds_present))
+        if keep_clip_paths:
+            # clip rows composite as src = 0: zero their coverage in the
+            # product (paint * 0 is the 0 the JAX package writes after it)
+            is_clip_s = prow[:, 39] != 0
+            out["opaque_s"] = out["opaque_s"] & ~is_clip_s
+            coverage_s = torch.where(is_clip_s[:, None], 0.0, coverage_s)
+        out["src_s"] = (src * coverage_s[:, None, :]).contiguous()
     return out
 
 
@@ -251,19 +267,27 @@ def composite_frame(fr: dict, base_color, *, width: int, height: int,
     overflow)."""
     n_loc = ((width + TILE_W - 1) // TILE_W) * ((height + TILE_H - 1)
                                                 // TILE_H)
-    base_premul = torch.cat([base_color[:3] * base_color[3], base_color[3:4]])
-    q = torch.arange(n_loc + 1, dtype=fr["g_s"].dtype,
-                     device=fr["g_s"].device)
-    starts_g = torch.searchsorted(fr["g_s"], q, side="left", out_int32=True)
-    los, his = occlusion_los(fr["g_s"], fr["coverage_s"], fr["opaque_s"],
-                             n_loc, starts_g)
-    if "col_s" in fr:
-        tiles = kernels.composite_solid(fr["coverage_s"], fr["col_s"],
-                                        base_premul.contiguous(), los, his)
-    else:
-        tiles = kernels.composite_src(fr["src_s"], base_premul.contiguous(),
-                                      los, his)
-    return tiles_to_image(tiles, width, height, u8_out), fr["overflow"]
+    with stage("s09b_occlusion"):
+        q = torch.arange(n_loc + 1, dtype=fr["g_s"].dtype,
+                         device=fr["g_s"].device)
+        starts_g = torch.searchsorted(fr["g_s"], q, side="left",
+                                      out_int32=True)
+        los, his = occlusion_los(fr["g_s"], fr["coverage_s"],
+                                 fr["opaque_s"], n_loc, starts_g)
+    # (the port's s10 also holds the image assembly, which the JAX
+    # package leaves outside its scopes)
+    with stage("s10_composite"):
+        base_premul = torch.cat([base_color[:3] * base_color[3],
+                                 base_color[3:4]])
+        if "col_s" in fr:
+            tiles = kernels.composite_solid(fr["coverage_s"], fr["col_s"],
+                                            base_premul.contiguous(), los,
+                                            his)
+        else:
+            tiles = kernels.composite_src(fr["src_s"],
+                                          base_premul.contiguous(), los, his)
+        img = tiles_to_image(tiles, width, height, u8_out)
+    return img, fr["overflow"]
 
 
 def get_pipeline(static: PipelineStatic, u8_out: bool = False):
