@@ -49,7 +49,25 @@ Phases (any failure exits non-zero):
   5. 512x512 frames of all six paths' scenes, and of a scene with every
      kind of layer (clip chain, pushed clip, luminance and alpha masks,
      multiply, blur filter, unbalanced push), rendered on the GPU and with
-     the port on the CPU, within 1 u8 level.
+     the port on the CPU, within 1 u8 level;
+  6. the device probe (utils/probe.run_probe on the GPU Renderer against
+     assets/probe.png, within 2 levels), then the repository's golden
+     corpus: each ported reference scene (scenes/reference_scenes.py) but
+     the three that draw text in Roboto, which the repository does not
+     hold, through Renderer(device="cuda").render in area AA at its golden
+     size and base color (CORPUS_SIZES, the SIZES of
+     tests/test_reference_goldens.py), with overflow 0, no retry, the
+     host's tier and its kernels' launches (K1, K2, K5 once; K4 for solid
+     paints only, else K6, once; or K7 once per non-empty draws op of a
+     layered scene), held to the bars of that test: mean abs within
+     2.5e-3 of the port's CPU oracle (all but many_draw_objects, whose 90k
+     paths take the oracle minutes) and, against tests/snapshots/
+     ref_<name>.png, RGBA8 mean < 0.002 and max < 4.01/255
+     (tests/snapshot.py); first-frame s, warm ms over 5 frames and device
+     ms per scene, and the phase's time. Text is not in this phase:
+     loading a font needs fontTools and matplotlib, which the GPU host it
+     was written for does not have (text is held to the JAX package on
+     the CPU, tests/test_torch_text.py).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels, and the one before that the card. ``--profile DIR`` also
 writes a torch.profiler table of three warm frames of each path to DIR.
@@ -175,6 +193,48 @@ PATHS = {
 }
 UNROLLED = "VELLO_TPU_UNROLLED_LAYERS"
 
+# phase 6: the ported reference scenes at the sizes of
+# tests/test_reference_goldens.py (SIZES), with its bars: the frame within
+# ORACLE_MEAN_TOL mean abs of the port's oracle, and within the golden
+# tests/snapshots/ref_<name>.png by the rules of tests/snapshot.py (RGBA8,
+# mean and max of |diff| / 255)
+CORPUS_SIZES = {
+    "funky_paths": (600, 600),
+    "fill_types": (350, 175),
+    "gradient_extend": (200, 200),
+    "deep_blend": (200, 200),
+    "many_clips": (200, 200),
+    "clip_test": (512, 768),
+    "blurred_rounded_rect": (200, 200),
+    "longpathdash_butt": (220, 40),
+    "longpathdash_round": (220, 40),
+    "stroke_styles_non_uniform": (310, 180),
+    "stroke_styles_skew": (512, 256),
+    "luminance_mask": (55, 55),
+    "two_point_radial": (260, 240),
+    "conflation_artifacts": (250, 350),
+    "labyrinth": (250, 250),
+    "robust_paths": (600, 150),
+    "blend_grid": (225, 225),
+    "cardioid_and_friends": (256, 192),
+    "image_sampling": (220, 220),
+    "image_sampling_bicubic": (280, 180),
+    "image_extend_modes_bilinear": (300, 300),
+    "image_extend_modes_nearest": (300, 300),
+    "brush_transform": (260, 180),
+    "many_draw_objects": (400, 300),
+}
+# the scenes that draw text in Roboto, which the repository does not hold
+ROBOTO_SCENES = ("clip_test", "fill_types", "gradient_extend")
+# 90k paths: held to the golden only (the scanline oracle takes minutes)
+GOLDEN_ONLY = ("many_draw_objects",)
+ORACLE_MEAN_TOL = 2.5e-3
+GOLDEN_MEAN_TOL = 0.002
+GOLDEN_MAX_TOL = 4.01 / 255.0
+CORPUS_WARM_FRAMES = 5
+REPO = os.path.dirname(os.path.abspath(__file__))
+SNAPSHOTS = os.path.join(REPO, "tests", "snapshots")
+
 # f32 operations per unit of work (compares, selects, a divide and integer
 # steps count as one each): K4, K6, K7 as counted from their sources; K1,
 # K2, K3 and K5 as the function needs them on these inputs, whatever
@@ -210,13 +270,13 @@ OPS_MSAA_RESOLVE = 5        # K3 per (fragment with touches, pixel,
                              # fill rule (2), the sample sum
 OPS_AREA_TOUCH = 6           # K5 per touch: dx, dy, the dy == 0 select,
                              # 1 / dy, the sign (2)
-OPS_AREA_ROW = 18            # K5 per (touch, tile row): y, y0 (2), y1 (3),
-                             # dyc, t0 (2), t1 (2), t0 * dx, t1 * dx, the
-                             # y_edge term (5)
-OPS_AREA_CROSSED = 19        # K5 per (touch, pixel) of a row the touch
-                             # crosses (dyc != 0): startx, x0, x1, xmin (3),
-                             # xmax, b, c, d, the numerator (6), the
-                             # denominator, the divide, * dyc
+OPS_AREA_ROW = 16            # K5 per (touch, tile row): y, y0 (2), y1 (3),
+                             # dyc, t0 (2), t1 (2), the y_edge term (5)
+OPS_AREA_CROSSED = 21        # K5 per (touch, pixel) of a row the touch
+                             # crosses (dyc != 0): startx, x0 and x1 (an
+                             # fma each, 2), xmin (3), xmax, b, c, d, the
+                             # numerator (6), the denominator, the divide,
+                             # * dyc
 OPS_AREA_PIXEL = 2           # K5 per (touch, pixel): + edge term, the sum
 OPS_AREA_RESOLVE = 4         # K5 per (valid fragment, pixel): + backdrop,
                              # the fill rule (2), the centers threshold
@@ -788,6 +848,127 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
     return frame, launches, img, prof, in_frame
 
 
+def corpus_names():
+    """The reference scenes of phase 6: all but the Roboto ones."""
+    from vello_tpu_torch.scenes.reference_scenes import REFERENCE_SCENES
+    if set(REFERENCE_SCENES) != set(CORPUS_SIZES):
+        fail(f"REFERENCE_SCENES {sorted(REFERENCE_SCENES)} is not the "
+             f"corpus {sorted(CORPUS_SIZES)}")
+    return sorted(set(CORPUS_SIZES) - set(ROBOTO_SCENES))
+
+
+def golden_diff(name, img):
+    """(mean, max) of |golden - frame| / 255 over the RGBA8 channels, the
+    frame (premultiplied f32) quantized as tests/snapshot.py does."""
+    from vello_tpu_torch.utils.png import read_png, to_rgba8
+    golden = read_png(os.path.join(SNAPSHOTS, f"ref_{name}.png"))
+    rgba = to_rgba8(img)
+    if golden.shape != rgba.shape:
+        fail(f"[corpus {name}] shape {rgba.shape} vs golden {golden.shape}")
+    d = np.abs(golden.astype(np.float64) - rgba.astype(np.float64)) / 255.0
+    return float(d.mean()), float(d.max())
+
+
+def corpus_launches(rs, counters):
+    """The launches one frame of a resolved scene takes in area AA: K1, K2
+    and K5 once; then K7 once per non-empty draws op of a layered scene,
+    or K4 (solid paints only) or K6 once."""
+    from vello_tpu_torch.encoding.encoding import (DRAW_BEGIN_LAYER,
+                                                   DRAW_END_LAYER)
+    from vello_tpu_torch.pipeline import layered
+    out = {name: 0 for name in counters}
+    out.update(flatten=1, expand_touches=1, coverage_area=1)
+    if any(int(k) in (DRAW_BEGIN_LAYER, DRAW_END_LAYER)
+           for k in rs.draw_kind):
+        out["composite_over"] = layered.nonempty_draws(
+            layered.build_layer_plan(rs)[1])
+    elif set(int(k) for k in rs.paint_kind) <= {0}:
+        out["composite_solid"] = 1
+    else:
+        out["composite_src"] = 1
+    return out
+
+
+def check_probe(Renderer):
+    """The device probe (utils/probe.py) against assets/probe.png within
+    its 2 levels."""
+    from vello_tpu_torch.utils import probe
+    from vello_tpu_torch.utils.png import read_png, to_rgba8
+    r = Renderer(device="cuda")
+    ok = probe.run_probe(r)
+    img = to_rgba8(r.render(probe.probe_scene(), probe.PROBE_PARAMS))
+    diff = int(np.abs(read_png(probe.PROBE_PATH).astype(np.int16)
+                      - img.astype(np.int16)).max())
+    print(f"[probe] run_probe {ok}, max diff {diff} levels against "
+          f"{os.path.relpath(probe.PROBE_PATH, REPO)}")
+    if not ok:
+        fail(f"the probe differs from its reference by {diff} levels")
+
+
+def run_corpus(kernels, Renderer, RenderParams, resolve):
+    """Phase 6: each reference scene of ``corpus_names`` through
+    Renderer(device="cuda").render at its golden size and base color:
+    the host's tier, no retry, its kernels' launches, the bars; returns
+    {scene: (first-frame s, warm ms, device ms)}."""
+    from vello_tpu_torch.oracle import OracleRenderer
+    from vello_tpu_torch.scenes.reference_scenes import build_for_golden
+    from vello_tpu_torch.utils.profile import profile_stages
+    times = {}
+    for name in corpus_names():
+        w, h = CORPUS_SIZES[name]
+        scene, base = build_for_golden(name, w, h)
+        bc = ((base.r, base.g, base.b, base.a) if base is not None
+              else (0.0, 0.0, 0.0, 1.0))
+        params = RenderParams(w, h, base_color=bc)
+        rs = resolve(scene.encoding, params)
+        want_tier = rs.capacities(params).key()
+        want = corpus_launches(rs, kernels.launches)
+        del rs
+        r = Renderer(device="cuda")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        img = r.render(scene, params)
+        first_s = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        prof = r.last_profile
+        frame = r.frame_thunk()
+        _, overflow = frame()
+        warm = []
+        for _ in range(CORPUS_WARM_FRAMES):
+            t0 = time.perf_counter()
+            frame()
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        device_ms = profile_stages(frame).get("_total", 0.0)
+        gmean, gmax = golden_diff(name, img)
+        omean = (None if name in GOLDEN_ONLY else float(np.abs(
+            img - OracleRenderer().render(scene, params)).mean()))
+        times[name] = (first_s, statistics.median(warm), device_ms)
+        print(f"[corpus {name}] {w}x{h} overflow {int(overflow)} retries "
+              f"{prof['retries']} tier {prof['tier']} launches "
+              f"{ {k: v for k, v in launches.items() if v} } first_frame_s "
+              f"{first_s:.4f} warm_ms median {times[name][1]:.3f} (min "
+              f"{min(warm):.3f} max {max(warm):.3f}, {CORPUS_WARM_FRAMES} "
+              f"frames) device_ms {device_ms:.4f} oracle_mean_abs {omean} "
+              f"golden_mean {gmean:.6f} golden_max {gmax * 255:.2f}/255")
+        if int(overflow) or prof["retries"] or prof["tier"] != dict(
+                zip(prof["tier"], want_tier)):
+            fail(f"[corpus {name}] overflow {int(overflow)}, retries "
+                 f"{prof['retries']}, tier {prof['tier']}: expected 0, 0 "
+                 f"and the host's tier {want_tier}")
+        if launches != want:
+            fail(f"[corpus {name}] launches {launches}, expected {want}")
+        if not np.isfinite(img).all() or img.shape != (h, w, 4):
+            fail(f"[corpus {name}] image {img.shape}, not finite")
+        if omean is not None and not omean < ORACLE_MEAN_TOL:
+            fail(f"[corpus {name}] mean abs {omean} against the oracle, "
+                 f"bar {ORACLE_MEAN_TOL}")
+        if not (gmean < GOLDEN_MEAN_TOL and gmax < GOLDEN_MAX_TOL):
+            fail(f"[corpus {name}] golden mean {gmean} (bar "
+                 f"{GOLDEN_MEAN_TOL}), max {gmax} (bar {GOLDEN_MAX_TOL})")
+    return times
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
@@ -982,6 +1163,15 @@ def main():
         if diff.max() > 1:
             fail(f"{path}: GPU and CPU images differ by {int(diff.max())} "
                  f"levels")
+
+    # 6. the device probe and the reference corpus
+    t0 = time.perf_counter()
+    check_probe(Renderer)
+    corpus = run_corpus(kernels, Renderer, RenderParams, resolve)
+    print(f"phase 6: the probe and {len(corpus)} reference scenes in "
+          f"{time.perf_counter() - t0:.3f} s; the largest by device ms: "
+          + ", ".join(f"{n} {t[2]:.4f}" for n, t in sorted(
+              corpus.items(), key=lambda kv: -kv[1][2])[:3]))
 
     print(card)
     print(json.dumps({"kernels": results}))

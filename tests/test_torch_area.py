@@ -1,9 +1,12 @@
 """K5 (the port's area coverage) and the area-AA frame against the JAX
 package on the CPU.
 
-- ``coverage_delta`` against ``fine_xla.coverage_delta``: rtol 2e-6 /
-  atol 1e-5, the FMA bar of test_fused_touches.py (XLA-CPU may contract
-  a*b+c into an FMA, the port rounds every op).
+- ``coverage_delta`` against ``fine_xla.coverage_delta`` compiled, as the
+  JAX Renderer runs it: equal, and so within rtol 2e-6 / atol 1e-5, the
+  FMA bar of test_fused_touches.py. XLA-CPU contracts ``startx + t0 * dx``
+  and ``d * d - c * c`` into fused multiply-adds, and the port computes
+  the same two (``fine.fma``; ``__fmaf_rn`` in kernel K5) and rounds every
+  other op.
 - K5's plain version against ``coverage_cumsum_pallas`` in interpret mode,
   differenced at the segment starts as ``render.py:412-415`` does, then the
   same backdrop, fill-rule, centers and valid epilogue: atol 1e-5. The JAX
@@ -11,15 +14,15 @@ package on the CPU.
   (measured max 7.6e-6 on these streams); the port sums each fragment
   directly. With ``centers``, pixels whose unthresholded coverage lies
   within that bar of 0.5 may round either way and are left out.
-  Fragments that own an exactly vertical touch (x0 == x1) are held to the
-  JAX package's other area path instead (``fine_xla.coverage_delta`` and
-  ``segment_sum_from_starts``, ``render.py:417-418``), at the same bar
-  (measured max 4.8e-6): for such a touch the area term divides two
-  differences of about 1e-6 (the ``- 1e-6`` nudge of ``fine.wgsl``), and
-  XLA-CPU contracts ``d * d - c * c`` into an FMA inside the interpret-mode
-  Pallas kernel but not in ``fine_xla``, which moves the term by up to 0.03
-  (0.5588 against 0.5294 where the exact area is 0.5422). The port rounds
-  every op, as ``fine_xla`` does here and as the kernel does on the card.
+  Fragments that own an exactly vertical touch (x0 == x1) included: for
+  such a touch the area term divides two differences of about 1e-6 (the
+  ``- 1e-6`` nudge of ``fine.wgsl``), so one rounding moves it by up to
+  0.06, and the port takes the fused multiply-adds that XLA-CPU contracts
+  in the interpret-mode kernel and in ``fine_xla`` alike. They are also
+  held to the JAX package's other area path (the compiled
+  ``fine_xla.coverage_delta`` and ``segment_sum_from_starts``,
+  ``render.py:417-418``), which the JAX Renderer on the CPU runs and which
+  made the goldens, at the same bar.
 - The whole frame at 128x128 through ``Renderer(device="cpu")`` against the
   JAX Renderer with Pallas in interpret mode: the bars of
   test_torch_pipeline.py. The base color is 0.12, not 0.1: 0.1 puts every
@@ -31,8 +34,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_pipeline import jax_interpret  # noqa: F401 (fixture)
 from test_torch_pipeline import SIZE, compare_frames, resolve_both
 from vello_tpu.ops import fine_xla
@@ -75,10 +80,16 @@ def _stream(seed):
             "valid": rng.uniform(size=f) < 0.9}
 
 
+# fine_xla.coverage_delta as the JAX Renderer runs it: compiled, where
+# XLA-CPU contracts x0 = startx + t0 * dx and d * d - c * c into fused
+# multiply-adds (op by op, eagerly, it rounds every op)
+_jit_coverage_delta = jax.jit(fine_xla.coverage_delta)
+
+
 def _jax_area(s, pallas=True):
     """The JAX package's area coverage (render.py:406-430) before the
     centers threshold: the Pallas cumsum differenced at starts (or, with
-    ``pallas=False``, ``fine_xla.coverage_delta`` and
+    ``pallas=False``, the compiled ``fine_xla.coverage_delta`` and
     ``segment_sum_from_starts``), backdrop, fill rule, valid mask."""
     seg, y_edge = jnp.asarray(s["seg"]), jnp.asarray(s["y_edge"])
     st = s["starts"]
@@ -89,7 +100,7 @@ def _jax_area(s, pallas=True):
         frag = at[1:] - at[:-1]
     else:
         frag = np.asarray(segment_sum_from_starts(
-            fine_xla.coverage_delta(seg, y_edge), jnp.asarray(st)))
+            _jit_coverage_delta(seg, y_edge), jnp.asarray(st)))
     winding = s["backdrop"][:, None] + frag
     cov = np.asarray(fine_xla.apply_fill_rule(
         jnp.asarray(winding), jnp.asarray(s["rule"][:, None])))
@@ -138,9 +149,8 @@ def test_area_plain_matches_pallas(seed, centers):
     got = _port_area(s, centers)
     assert got.shape == ref.shape == (len(s["backdrop"]), 256)
     assert 0.05 < ref.mean() < 0.95 and (ref == 0).any() and (ref == 1).any()
-    plain = ~_vertical_frags(s)
-    assert 0.5 < plain.mean() < 1.0
-    _assert_area_close(got, ref, centers, plain)
+    assert 0.0 < _vertical_frags(s).mean() < 0.5
+    _assert_area_close(got, ref, centers, slice(None))
 
 
 @pytest.mark.parametrize("centers", [False, True])
@@ -153,15 +163,54 @@ def test_area_plain_matches_xla_path(seed, centers):
     _assert_area_close(got, ref, centers, slice(None))
 
 
+def _fma_exact(a, b, c):
+    """The f32 nearest a * b + c, ties to even, by exact rational sums."""
+    from fractions import Fraction
+    v = Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c))
+    x = np.float32(float(v))
+    cands = [np.nextafter(x, np.float32(-np.inf)), x,
+             np.nextafter(x, np.float32(np.inf))]
+    err = [abs(Fraction(float(y)) - v) for y in cands]
+    best = min(err)
+    ties = [y for y, e in zip(cands, err) if e == best]
+    return min(ties, key=lambda y: int(np.float32(y).view(np.int32)) & 1)
+
+
+def test_fma_is_correctly_rounded():
+    """``fine.fma``, the plain version of ``__fmaf_rn``: one rounding of
+    the exact a * b + c, on random operands of many magnitudes, on the
+    product's own rounding error (c = -RN(a * b), where a multiply and an
+    add give 0), and on the vertical-touch terms d * d - c * c."""
+    rng = np.random.default_rng(11)
+    n = 3000
+    a = (rng.uniform(-2, 2, n) * 2.0 ** rng.integers(-30, 30, n)).astype(
+        np.float32)
+    b = (rng.uniform(-2, 2, n) * 2.0 ** rng.integers(-30, 30, n)).astype(
+        np.float32)
+    c = (rng.uniform(-2, 2, n) * 2.0 ** rng.integers(-60, 60, n)).astype(
+        np.float32)
+    c[::3] = -(a[::3] * b[::3])
+    x = rng.uniform(0, 1, n).astype(np.float32)
+    d = np.maximum(x - np.float32(1e-6), np.float32(0))
+    a, b, c = (np.concatenate([a, d]), np.concatenate([b, d]),
+               np.concatenate([c, -(x * x)]))
+    got = fine.fma(*(torch.from_numpy(v) for v in (a, b, c))).numpy()
+    want = np.array([_fma_exact(*t) for t in zip(a, b, c)], np.float32)
+    np.testing.assert_array_equal(got, want)
+    assert (got[::3][:n // 3] != 0).mean() > 0.9    # the product errors
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_coverage_delta_matches_fine_xla(seed):
     s = _stream(seed)
     got = fine.coverage_delta(torch.from_numpy(s["seg"]),
                               torch.from_numpy(s["y_edge"])).numpy()
-    ref = np.asarray(fine_xla.coverage_delta(jnp.asarray(s["seg"]),
-                                             jnp.asarray(s["y_edge"])))
+    ref = np.asarray(_jit_coverage_delta(jnp.asarray(s["seg"]),
+                                         jnp.asarray(s["y_edge"])))
     assert np.isfinite(got).all() and (got != 0).mean() > 0.1
     np.testing.assert_allclose(got, ref, rtol=2e-6, atol=1e-5)
+    # the same f32 ops with the same two fused multiply-adds: equal
+    np.testing.assert_array_equal(got, ref)
 
 
 def test_area_rows_sum_in_stream_order():

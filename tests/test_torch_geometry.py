@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 import vello_tpu
 import vello_tpu_torch
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_pipeline import (blurred_rects, edge_scene, image_quality,
                                  mixed_paint, mmark, stroked_mmark)
 from vello_tpu.encoding.resolve import resolve as jax_resolve

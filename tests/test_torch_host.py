@@ -15,6 +15,7 @@ import pytest
 
 import vello_tpu
 import vello_tpu_torch
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 
 SIZE = 256
 
@@ -68,16 +69,27 @@ def test_resolve_matches_jax(name, aa):
     assert got.n_segs > 0 and got.est_touches > 0
 
 
-def test_text_needs_the_text_modules():
-    """The text host modules are not copied yet: the glyph methods say
-    which ROADMAP item brings them, and the text scenes are absent."""
+def test_text_methods_draw():
+    """``draw_text`` lays out and draws a run in the default font, and
+    ``draw_glyphs`` returns the port's builder; the text scenes are there
+    (their resolved scenes against the JAX package's:
+    tests/test_torch_text.py)."""
+    pytest.importorskip("fontTools")
+    pytest.importorskip("matplotlib")
+    from vello_tpu_torch import text
     from vello_tpu_torch.scenes import test_scenes
 
     scene = vello_tpu_torch.Scene()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        scene.draw_text("x", 8, 20, 14, vello_tpu_torch.palette.WHITE)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        scene.draw_glyphs(None)
+    scene.draw_text("Hello", 8, 20, 14, vello_tpu_torch.palette.WHITE)
+    assert scene.encoding.n_paths == 1
+    run = scene.draw_glyphs(text.default_font())
+    assert isinstance(run, text.DrawGlyphs) and run.scene is scene
+    run.font_size(14).draw(vello_tpu_torch.Fill.NON_ZERO,
+                           text.layout_text(run.font, 14.0, "ab", (8, 40)))
+    assert scene.encoding.n_paths == 2
+    img = vello_tpu_torch.Renderer(device="cpu").render_u8(
+        scene, vello_tpu_torch.RenderParams(64, 48))
+    assert img[12:22, 8:40, :3].max() > 200        # white ink on black
     for name in ("text_scene", "text_heavy", "tiger"):
-        assert not hasattr(test_scenes, name)
-    assert "text_scene" not in test_scenes.DEVICE_SCENES
+        assert callable(getattr(test_scenes, name))
+    assert test_scenes.DEVICE_SCENES["text_scene"] is test_scenes.text_scene

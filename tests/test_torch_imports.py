@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from vello_tpu_torch.ops import fine, kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -38,6 +39,73 @@ loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "vello_tpu"))
 print("MODULES", len(names), "FOREIGN", len(loaded), loaded[:5])
 """
+
+
+# the host modules copied for text, the oracle, the corpus, SVG, the probe
+# and debug
+HOST_MODULES = ("vello_tpu_torch.text", "vello_tpu_torch.colr",
+                "vello_tpu_torch.oracle.renderer",
+                "vello_tpu_torch.oracle.np_blend",
+                "vello_tpu_torch.oracle.np_paint",
+                "vello_tpu_torch.oracle.np_blur",
+                "vello_tpu_torch.oracle.np_filters",
+                "vello_tpu_torch.scenes.reference_scenes",
+                "vello_tpu_torch.utils.svg", "vello_tpu_torch.utils.rust_rand",
+                "vello_tpu_torch.utils.probe", "vello_tpu_torch.utils.debug")
+
+# the font libraries refused at import, as on a host without them: every
+# module still imports, and the oracle, the corpus, SVG and the probe run
+_NO_FONT_LIBS = """
+import importlib
+import importlib.abc
+import pkgutil
+import sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("fontTools", "PIL", "matplotlib"):
+            raise ImportError(f"no {name} here")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import vello_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(vello_tpu_torch.__path__,
+                                               "vello_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+from vello_tpu_torch.oracle import OracleRenderer
+from vello_tpu_torch.scenes.reference_scenes import build_for_golden
+from vello_tpu_torch.utils import probe, svg
+scene, _ = build_for_golden("many_clips", 32, 32)
+img = OracleRenderer().render(scene, vello_tpu_torch.RenderParams(32, 32))
+assert img.shape == (32, 32, 4) and img[..., 3].max() > 0
+assert probe.run_probe(vello_tpu_torch.Renderer(device="cpu"))
+svg.load_svg('<svg><path d="M1 1 L9 1 L5 8 Z"/></svg>')
+try:
+    vello_tpu_torch.Scene().draw_text("x", 0, 10, 10,
+                                      vello_tpu_torch.palette.WHITE)
+except ImportError:
+    pass
+else:
+    raise AssertionError("text drew without its font libraries")
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib", "vello_tpu", "fontTools", "PIL",
+                 "matplotlib"))
+print("MODULES", len(names), "FOREIGN", len(loaded), loaded[:5])
+print("NAMES", " ".join(names))
+"""
+
+
+def test_host_modules_import_without_font_libraries():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "-c", _NO_FONT_LIBS], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "FOREIGN 0 []" in out.stdout, out.stdout
+    names = set(out.stdout.split("NAMES")[1].split())
+    assert set(HOST_MODULES) <= names, set(HOST_MODULES) - names
 
 
 def test_package_imports_no_jax_and_no_vello_tpu():
@@ -75,6 +143,30 @@ def test_sources_do_not_import_vello_tpu():
     assert not _FOREIGN_IMPORT.search("from vello_tpu_torch import Scene")
     assert not _FOREIGN_IMPORT.search("import vello_tpu_torch.ops")
 
+
+
+_ONE_THREAD = re.compile(
+    r"^(from test_torch_pipeline import one_torch_thread\b|"
+    r"def one_torch_thread\()", re.M)
+
+
+def test_cpu_test_modules_run_torch_in_one_thread():
+    """Every CPU test module of the port takes the autouse fixture
+    ``one_torch_thread`` (defined in test_torch_pipeline.py, imported by
+    the others): a module without it runs torch's pool threads against the
+    other pytest-xdist workers. test_torch_cuda.py runs on the card."""
+    tests = os.path.join(REPO, "tests")
+    names = sorted(f for f in os.listdir(tests)
+                   if re.fullmatch(r"test_torch_.*\.py", f)
+                   and f != "test_torch_cuda.py")
+    assert len(names) > 20
+    missing = []
+    for name in names:
+        with open(os.path.join(tests, name)) as f:
+            if not _ONE_THREAD.search(f.read()):
+                missing.append(name)
+    assert not missing, missing
+    assert torch.get_num_threads() == 1
 
 def _stream(rng, t=64, f=12):
     fid = np.sort(rng.integers(0, f, t))

@@ -1,4 +1,7 @@
-"""The port's layered compositor against the JAX package's, on the CPU.
+"""The port's layered compositor against the JAX package's, on the CPU:
+the plan and the layer math (the whole frames are in
+test_torch_layers_frames.py, the unrolled formulation in
+test_torch_layers_unrolled.py; all three use this file's scenes).
 
 - the layer plan (``build_layer_plan``) equal field by field;
 - ``lookup_sorted`` / ``rank_sorted`` (int64 ``torch.searchsorted``)
@@ -10,18 +13,7 @@
   src-over, in place) within 2e-5 of the interpret-mode Pallas
   ``fine_composite_over`` and of ``fine_xla.composite_srcover_over`` (both
   transmittance products, about 2e-5 off exact), on the per-tile walk
-  bounds the port's compositor uses;
-- whole 128x128 frames through ``Renderer(device="cpu")`` and the JAX
-  Renderer on its Pallas kernels in interpret mode: the same tier, retries
-  and live cap, u8 images within 1 level with at least 99% of the bytes
-  identical. The colors and the base (0.12) keep flat regions off u8 half
-  levels, where the JAX package's log/exp walk would flip a whole region
-  by one level;
-- the port's unrolled formulation (``VELLO_TPU_UNROLLED_LAYERS=1``, clip
-  coverage by ``segment_sum_sorted`` and so kernel K8) against its scan
-  formulation: identical in msaa16, whose clip coverage prefixes are exact
-  in f32, and within 1 level in area (against the JAX package's unrolled
-  frames: test_torch_unrolled.py).
+  bounds the port's compositor uses.
 """
 
 import dataclasses
@@ -35,9 +27,8 @@ import torch
 
 import vello_tpu
 import vello_tpu_torch
-from test_torch_pipeline import uncontracted_area
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from vello_tpu.encoding.resolve import resolve as jax_resolve
-from vello_tpu.models.renderer import Renderer as JaxRenderer
 from vello_tpu.ops import blend as jax_blend
 from vello_tpu.ops import filters as jax_filters
 from vello_tpu.ops import fine_xla
@@ -45,8 +36,8 @@ from vello_tpu.ops import segmented as jax_segmented
 from vello_tpu.ops.pallas_kernels import FINE_CHUNK, NPX, fine_composite_over
 from vello_tpu.pipeline import layered as jax_layered
 from vello_tpu.pipeline import render as jax_render
-from vello_tpu_torch import Renderer, RenderParams, resolve
-from vello_tpu_torch.ops import blend, filters, fine, kernels, segmented
+from vello_tpu_torch import RenderParams, resolve
+from vello_tpu_torch.ops import blend, filters, kernels, segmented
 from vello_tpu_torch.pipeline import layered
 
 SIZE = 128
@@ -432,185 +423,3 @@ def test_composite_over_from_zero_equals_src_composite():
                                  his)
     assert torch.equal(got, kernels.composite_src(src, torch.zeros(4), los,
                                                   his))
-
-
-# ---------------------------------------------------------------------------
-# whole frames
-
-def spy_composites(monkeypatch):
-    """Count the composite wrappers' calls."""
-    calls = {"composite_over": 0, "composite_src": 0, "composite_solid": 0}
-
-    def spy(wrapper):
-        original = getattr(kernels, wrapper)
-
-        def wrapped(*args, **kwargs):
-            calls[wrapper] += 1
-            return original(*args, **kwargs)
-        monkeypatch.setattr(kernels, wrapper, wrapped)
-
-    for name in calls:
-        spy(name)
-    return calls
-
-
-def render_both(name, params, out="rgba8"):
-    ours, ref, jparams = resolve_both(name, params)
-    port = Renderer(device="cpu")
-    got = port.render_resolved(ours, params, out=out)
-    ref_r = JaxRenderer()
-    want = ref_r.render_resolved(ref, jparams, out=out)
-    for k in ("tier", "retries", "n_live", "layered"):
-        assert port.last_profile[k] == ref_r.last_profile[k], k
-    assert port.last_profile["layered"] and port.last_profile["retries"] == 0
-    return got, want, ours, port.last_profile
-
-
-def check_frame(monkeypatch, name, aa, opaque=True, uncapped=False):
-    calls = spy_composites(monkeypatch)
-    params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing=aa)
-    got, want, ours, prof = render_both(name, params)
-    assert (prof["n_live"] == 0) == uncapped
-    assert got.dtype == np.uint8 and got.shape == want.shape
-    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
-    assert diff.max() <= 1
-    assert (diff == 0).mean() >= 0.99
-    if opaque:
-        assert got[..., 3].min() == 255          # opaque base everywhere
-    assert len(np.unique(got.reshape(-1, 4), axis=0)) > 8
-    plan = layered.build_layer_plan(ours)[1]
-    assert calls == {"composite_over": layered.nonempty_draws(plan),
-                     "composite_src": 0, "composite_solid": 0}
-    return plan
-
-
-@pytest.mark.parametrize("name", ["layered_mmark", "clips", "masks",
-                                  "compose_modes", "filters", "dense_clips"])
-def test_layered_frame_matches_jax(jax_interpret, monkeypatch, name):
-    """(blend_grid's 16 mixes are held to the JAX package's one by one in
-    test_blend_matches_jax; compose_modes runs four of them in a frame.)
-    CLEAR, SRC_IN and their kin clear the backdrop inside their cells."""
-    check_frame(monkeypatch, name, "msaa16", opaque=name != "compose_modes",
-                uncapped=name == "dense_clips")
-
-
-def test_layered_area_frame_matches_jax(jax_interpret, monkeypatch):
-    """The clip scene in area AA (the JAX frame's area coverage is
-    ``uncontracted_area``'s, see test_torch_pipeline.py)."""
-    uncontracted_area(monkeypatch)
-    jax_layered._JIT_CACHE.clear()
-    try:
-        check_frame(monkeypatch, "clips", "area")
-    finally:
-        _clear_jax_caches()
-
-
-def test_u8_rule_where_alpha_quantizes_to_zero(jax_interpret):
-    """A luminance mask over the whole frame leaves alphas near 0. The
-    premultiplied f32 frames agree within 2e-5, and the u8 frames within 1
-    level at every pixel, those whose alpha quantizes to 0 included: the
-    layered path quantizes by the JAX package's layered rule
-    (``renderer._to_rgba8_device``: unpremultiply down to alpha 1e-6), not
-    by the flat paths' rgb = 0 below alpha 1/510 (``tiles_to_image``)."""
-    params = RenderParams(SIZE, SIZE, base_color=BASE,
-                          antialiasing="msaa16")
-    got, want, _, _ = render_both("luminance_masks", params, out="f32")
-    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
-    got8, want8, _, _ = render_both("luminance_masks", params)
-    vis = want[..., 3] >= 1.0 / 510.0
-    assert (~vis).any() and vis.mean() > 0.5
-    diff = np.abs(got8.astype(np.int16) - want8.astype(np.int16))
-    assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
-    assert got8[~vis][:, :3].any()          # unpremultiplied, not zeroed
-
-
-def test_renderer_layers_and_frame_thunk():
-    """A clip layer renders through render_u8 and render (no
-    NotImplementedError); the frame thunk re-runs the layered frame."""
-    params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing="msaa16")
-    r = Renderer(device="cpu")
-    scene = clips(vello_tpu_torch)
-    u8 = r.render_u8(scene, params)
-    assert r.last_profile["layered"]
-    img, overflow = r.frame_thunk()()
-    assert int(overflow) == 0
-    np.testing.assert_array_equal(img.numpy(), u8)
-    f32 = r.render(scene, params)
-    assert f32.dtype == np.float32 and (f32[..., :3] <= f32[..., 3:]
-                                        + 1e-7).all()
-
-
-# ---------------------------------------------------------------------------
-# the unrolled formulation (VELLO_TPU_UNROLLED_LAYERS, kernel K8)
-
-def spy_segment_sums(monkeypatch):
-    """Count the calls of ``segmented.segment_sum_sorted`` and of K8's
-    wrapper."""
-    calls = {"segment_sum_sorted": 0, "cumsum0": 0}
-
-    def spy(module, name):
-        original = getattr(module, name)
-
-        def wrapped(*args, **kwargs):
-            calls[name] += 1
-            return original(*args, **kwargs)
-        monkeypatch.setattr(module, name, wrapped)
-
-    spy(segmented, "segment_sum_sorted")
-    spy(kernels, "cumsum0")
-    return calls
-
-
-@pytest.mark.parametrize("name,aa", [
-    ("clips", "msaa16"), ("blend_grid", "msaa16"), ("masks", "msaa16"),
-    ("clips", "area"), ("blend_grid", "area")])
-def test_unrolled_frame_equals_scan_frame(monkeypatch, name, aa):
-    """The port's two formulations on one resolved scene. msaa16 clip
-    coverages are multiples of 1/16, so every prefix of the unrolled sum is
-    exact and the f32 frames are equal; area coverages are not, and the
-    cumsum differences may move a u8 level."""
-    params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing=aa)
-    rs = resolve(SCENES[name](vello_tpu_torch).encoding, params)
-    scan = Renderer(device="cpu").render_resolved(rs, params)
-    scan8 = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
-    monkeypatch.setenv("VELLO_TPU_UNROLLED_LAYERS", "1")
-    sums = spy_segment_sums(monkeypatch)
-    unrolled = Renderer(device="cpu").render_resolved(rs, params)
-    unrolled8 = Renderer(device="cpu").render_resolved(rs, params,
-                                                       out="rgba8")
-    assert sums["cumsum0"] == 2 * layered.clipped_pushes(
-        layered.build_layer_plan(rs)[1]) > 0
-    if aa == "msaa16":
-        np.testing.assert_array_equal(unrolled, scan)
-        np.testing.assert_array_equal(unrolled8, scan8)
-    else:
-        np.testing.assert_allclose(unrolled, scan, rtol=0, atol=1e-5)
-        diff = np.abs(unrolled8.astype(np.int16) - scan8.astype(np.int16))
-        assert diff.max() <= 1
-
-
-@pytest.mark.parametrize("name", ["masks", "blend_grid"])
-def test_renderer_takes_unrolled_path_when_asked(monkeypatch, name):
-    """With VELLO_TPU_UNROLLED_LAYERS set, ``Renderer(device="cpu")`` takes
-    the unrolled formulation: one ``segment_sum_sorted`` per clipped push
-    (the masks scene's pushes without a clip take none); without it, the
-    scan formulation takes none. The frame thunk keeps the formulation it
-    was built with."""
-    params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing="msaa16")
-    rs = resolve(SCENES[name](vello_tpu_torch).encoding, params)
-    st, plan, _, _ = layered.build_layer_plan(rs)
-    n = layered.clipped_pushes(plan)
-    pushes = [op[0] for op in st.ops].count(layered.OP_PUSH)
-    assert (n, pushes) == {"masks": (2, 5), "blend_grid": (15, 15)}[name]
-    sums = spy_segment_sums(monkeypatch)
-    Renderer(device="cpu").render_resolved(rs, params)
-    assert sums == {"segment_sum_sorted": 0, "cumsum0": 0}
-    monkeypatch.setenv("VELLO_TPU_UNROLLED_LAYERS", "1")
-    r = Renderer(device="cpu")
-    r.render_resolved(rs, params)
-    assert r.last_profile["layered"]
-    assert sums == {"segment_sum_sorted": n, "cumsum0": n}
-    monkeypatch.delenv("VELLO_TPU_UNROLLED_LAYERS")
-    _, overflow = r.frame_thunk()()
-    assert int(overflow) == 0
-    assert sums == {"segment_sum_sorted": 2 * n, "cumsum0": 2 * n}

@@ -9,6 +9,7 @@ import torch
 
 import jax.numpy as jnp
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from vello_tpu.ops.pallas_kernels import CK_M, WF_M, msaa_coverage_pallas
 from vello_tpu_torch.ops import kernels
 

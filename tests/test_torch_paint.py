@@ -18,6 +18,7 @@ import torch
 import jax.numpy as jnp
 
 import vello_tpu_torch as vt
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_pipeline import (SIZE, blurred_rects, gradient_suite,
                                  image_quality)
 from vello_tpu.ops import fine_xla

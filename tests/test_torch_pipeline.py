@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import vello_tpu
 import vello_tpu_torch
@@ -24,6 +25,19 @@ from vello_tpu_torch import Renderer, RenderParams, resolve
 
 SIZE = 128
 BASE = (0.1, 0.1, 0.1, 1.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch in one thread for the module: the suite runs in several
+    pytest-xdist workers on the same cores, where torch's pool threads
+    would spin between ops and take cores from the other workers (and
+    from this worker's own host code). The port's other CPU test modules
+    import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def edge_scene(pkg):
@@ -200,36 +214,6 @@ def test_frame_matches_jax(jax_interpret, name, aa):
     assert len(np.unique(img.reshape(-1, 4), axis=0)) > 8
 
 
-def _eager_area_cumsum(seg, y_edge):
-    """The running cumsum of ``fine_xla.coverage_delta`` rows, the formula
-    evaluated op by op (no fused program, so no multiply-add contraction)
-    and summed in f32 on the host."""
-    from vello_tpu.ops import fine_xla
-    rows = np.asarray(fine_xla.coverage_delta(jnp.asarray(seg),
-                                              jnp.asarray(y_edge)))
-    return np.cumsum(rows, axis=0, dtype=np.float32)
-
-
-def uncontracted_area(monkeypatch):
-    """Route the JAX frame's area coverage through ``_eager_area_cumsum``
-    instead of the interpret-mode Pallas kernel. For an exactly vertical
-    touch the area term divides by xmax - xmin = 1e-6 (the nudge of
-    fine.wgsl), and XLA-CPU contracts ``d * d - c * c`` into a fused
-    multiply-add inside the compiled kernel, which moves such a pixel by up
-    to 0.1 (test_torch_area.py); the port rounds every op, as the formula
-    evaluated op by op does. Device strokes of axis-aligned segments make
-    such touches common."""
-    from vello_tpu.ops import pallas_kernels
-
-    def cumsum(seg, y_edge, interpret=None):
-        out = jax.ShapeDtypeStruct((seg.shape[0], 256), jnp.float32)
-        return jax.pure_callback(_eager_area_cumsum, out, seg, y_edge)
-
-    monkeypatch.setattr(pallas_kernels, "coverage_cumsum_pallas", cumsum)
-    jax_render._JIT_CACHE.clear()
-    jax_render._JIT_B_CACHE.clear()
-
-
 def spy_composites(monkeypatch):
     """Count the composite wrappers' calls and the K1 calls given stroke
     rows (a 21-column segment pack)."""
@@ -266,11 +250,10 @@ def test_paint_and_stroke_frames_match_jax(jax_interpret, monkeypatch, name,
                                            aa):
     """Non-solid paints go through eval_paints and the src composite (K6);
     device strokes through K1's stroke rows and the solid composite (K4).
-    The base is 0.12, off the u8 half level 25.5 (see test_torch_area.py);
-    the JAX frame's area coverage is ``uncontracted_area``'s."""
+    The base is 0.12, off the u8 half level 25.5 (see test_torch_area.py).
+    In area AA both frames take the two fused multiply-adds that XLA-CPU
+    contracts in the area formula (``fine.coverage_delta``)."""
     calls = spy_composites(monkeypatch)
-    if aa == "area":
-        uncontracted_area(monkeypatch)
 
     params = RenderParams(SIZE, SIZE, base_color=(0.12, 0.12, 0.12, 1.0),
                           antialiasing=aa)
@@ -292,13 +275,12 @@ def test_stroked_area_frame_near_jax(jax_interpret, monkeypatch):
     of an input moves a pixel's coverage by up to ~0.1. The bevel triangle
     of a straight continuation also takes its side from the sign of a dot
     product that is 0 in exact arithmetic. The JAX package's interpret-mode
-    kernels contract multiply-adds (XLA-CPU), the port rounds every op, so
-    their touches differ by ulps there. Measured: 2 pixels of 16384 two
-    levels apart (7 pixels up to 8 levels against the interpret-mode area
-    kernel). stroked_mmark_rotated, with no vertical edge, meets the full
-    bars in area AA."""
+    geometry kernels contract multiply-adds (XLA-CPU), the port's round
+    every op, so their touches differ by ulps there (the area formula takes
+    the same two fused multiply-adds in both). Measured: 9 pixels of 16384
+    differ, 1 of them by two levels. stroked_mmark_rotated, with no
+    vertical edge, meets the full bars in area AA."""
     calls = spy_composites(monkeypatch)
-    uncontracted_area(monkeypatch)
     params = RenderParams(SIZE, SIZE, base_color=(0.12, 0.12, 0.12, 1.0),
                           antialiasing="area")
     ours, ref, jparams = resolve_both("stroked_mmark", params)
@@ -352,9 +334,10 @@ def test_render_and_frame_thunk():
 
 
 def test_unported_features_raise():
-    """Text and render_mode='speed' still raise, the latter on the layered
-    path too (layers render since the layered compositor and kernel K7
-    were ported: tests/test_torch_layers.py)."""
+    """render_mode='speed' still raises, on the layered path too (layers
+    render since the layered compositor and kernel K7 were ported:
+    tests/test_torch_layers_*.py; text since the text host modules were
+    copied: tests/test_torch_text.py)."""
     params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing="msaa16")
     pkg = vello_tpu_torch
     scene = pkg.Scene()
@@ -363,8 +346,6 @@ def test_unported_features_raise():
     scene.fill(pkg.Fill.NON_ZERO, pkg.Affine.identity(), pkg.palette.RED,
                None, pkg.kurbo.circle_path(64, 64, 30))
     scene.pop_layer()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        scene.draw_text("x", 8, 20, 14, pkg.palette.WHITE)
     speed = dataclasses.replace(params, render_mode="speed")
     for s in (mmark(pkg), scene):
         with pytest.raises(NotImplementedError, match="speed"):

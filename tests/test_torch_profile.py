@@ -12,6 +12,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from vello_tpu_torch import Renderer, RenderParams, resolve
 from vello_tpu_torch.pipeline import layered
 from vello_tpu_torch.scenes.test_scenes import filled_mmark, layered_mmark

@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 
 import vello_tpu_torch as vt
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from vello_tpu_torch import Renderer, RenderParams, resolve
 from vello_tpu_torch.kurbo import circle_path, star_path
 

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from vello_tpu.ops import segmented as jax_segmented
 from vello_tpu.ops.pallas_kernels import cumsum_pallas
 from vello_tpu_torch.ops import kernels, segmented

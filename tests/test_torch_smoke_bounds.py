@@ -14,6 +14,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+from test_torch_pipeline import one_torch_thread  # noqa: E402,F401
 import chip_smoke  # noqa: E402
 
 
@@ -149,3 +150,38 @@ def test_crossed_samples_equal_a_brute_force_count(ns):
     got = chip_smoke.crossed_samples(*(torch.from_numpy(v) for v in
                                        (trow, starts, fidx, valid)), ns)
     assert got == want
+
+
+def test_corpus_phase_holds_the_golden_tests_scenes_and_bars():
+    """Phase 6's scene sizes, its Roboto and golden-only scenes and its
+    three bars are those of test_reference_goldens.py's
+    test_ported_scene_device_vs_oracle and of snapshot.py's defaults, read
+    from their sources, so that the two cannot drift apart."""
+    import inspect
+    import re
+
+    import snapshot
+    import test_reference_goldens as goldens
+
+    assert chip_smoke.CORPUS_SIZES == goldens.SIZES
+    src = inspect.getsource(goldens.test_ported_scene_device_vs_oracle)
+    roboto = re.search(r"if name in \(([^)]*)\)", src).group(1)
+    assert sorted(re.findall(r'"(\w+)"', roboto)) == sorted(
+        chip_smoke.ROBOTO_SCENES)
+    assert re.findall(r'if name == "(\w+)":', src) == list(
+        chip_smoke.GOLDEN_ONLY)
+    oracle = re.findall(r"np\.abs\(dev - orc\)\.mean\(\) < ([0-9.e-]+)", src)
+    assert [float(v) for v in oracle] == [chip_smoke.ORACLE_MEAN_TOL]
+    means = re.findall(r'assert_snapshot\(f"ref_\{name\}", dev, '
+                       r'mean_tol=([0-9.e-]+)\)', src)
+    assert len(means) == 2
+    assert {float(v) for v in means} == {chip_smoke.GOLDEN_MEAN_TOL}
+    assert "max_tol" not in src           # the snapshot default applies
+    sig = inspect.signature(snapshot.assert_snapshot)
+    assert sig.parameters["max_tol"].default is None
+    default = re.findall(r"max_tol = ([0-9.]+) / 255\.0",
+                         inspect.getsource(snapshot.assert_snapshot))
+    assert [float(v) / 255.0 for v in default] == [chip_smoke.GOLDEN_MAX_TOL]
+    assert sorted(chip_smoke.corpus_names()) == sorted(
+        set(goldens.SIZES) - set(chip_smoke.ROBOTO_SCENES))
+    assert len(chip_smoke.corpus_names()) == 21

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 import vello_tpu
 import vello_tpu_torch
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_pipeline import stroked_mmark
 from vello_tpu.encoding.resolve import resolve as jax_resolve
 from vello_tpu.models.renderer import pack_buffers as jax_pack_buffers

@@ -4,13 +4,15 @@ and of blend_grid in msaa16, u8 within 1 level with at least 99% of the
 bytes identical, the port's K8 once per clipped push. Most of the time
 here is the JAX package's compile of its unrolled frames, so these tests
 sit in a file of their own, which pytest-xdist runs beside
-test_torch_layers.py.
+test_torch_layers_*.py.
 """
 
 import pytest
 
-from test_torch_layers import check_frame, spy_segment_sums
-from test_torch_layers import jax_interpret  # noqa: F401  (a fixture)
+from test_torch_layers_frames import check_frame
+from test_torch_layers_plan import jax_interpret  # noqa: F401  (a fixture)
+from test_torch_layers_unrolled import spy_segment_sums
+from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from vello_tpu_torch.pipeline import layered
 
 

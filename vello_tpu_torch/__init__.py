@@ -6,12 +6,18 @@ package's own copy of ``vello_tpu``'s numpy/C++ host modules, with the same
 module names; the device frame is PyTorch plus the kernels in ``csrc/``.
 This package imports neither JAX nor ``vello_tpu``.
 
-Supported so far: fills and device strokes with solid, gradient (linear,
-radial, sweep), image (nearest, bilinear, bicubic) and blurred-rect
-paints; layers (clips, group alpha, mix and compose modes, luminance and
-alpha masks, layer filters); area (the default), centers, msaa8 or msaa16
-antialiasing. A CPU tensor runs each kernel's plain PyTorch version; a
-CUDA tensor runs the kernel (built with ``nvcc`` at first use).
+Supported: fills and device strokes with solid, gradient (linear, radial,
+sweep), image (nearest, bilinear, bicubic) and blurred-rect paints; layers
+(clips, group alpha, mix and compose modes, luminance and alpha masks,
+layer filters); text (``Scene.draw_text`` / ``draw_glyphs``: outlines,
+COLR v0/v1 and bitmap glyphs, hinted, raster and emboldened runs; font
+loading needs fontTools, hinting PIL, the default font matplotlib); area
+(the default), centers, msaa8 or msaa16 antialiasing. A CPU tensor runs
+each kernel's plain PyTorch version; a CUDA tensor runs the kernel (built
+with ``nvcc`` at first use). The host side also holds the CPU oracle
+(``oracle.OracleRenderer``), the reference scene corpus
+(``scenes.reference_scenes``), an SVG loader (``utils.svg``), the device
+probe (``utils.probe.run_probe``) and debug captures (``utils.debug``).
 """
 
 from . import kurbo, peniko

@@ -16,11 +16,12 @@
 // What bounds it on the H100: the F x 1 KB coverage write (184 MB at the
 // 1600x1600 filled_mmark-30k tier, F = 180224) against instruction issue
 // and the latency of each fragment's short chain of dependent loads
-// (its touch range, then its touches). Of the area formula, 1 / dy and the
-// sign belong to the touch; y, the clamped y0 and y1, dyc, t0 * dx,
-// t1 * dx and the left-edge term belong to the (touch, tile row); only the
-// x chain and its quotient belong to the pixel, and only where the touch
-// crosses the row (dyc != 0): a short touch crosses a few of the 16 rows.
+// (its touch range, then its touches). Of the area formula, dx, 1 / dy and
+// the sign belong to the touch; y, the clamped y0 and y1, dyc, t0, t1 and
+// the left-edge term belong to the (touch, tile row); only the x chain
+// (from x0 = fma(t0, dx, startx) on) and its quotient belong to the pixel,
+// and only where the touch crosses the row (dyc != 0): a short touch
+// crosses a few of the 16 rows.
 //
 // Design: one CTA of kThreads per fragment f, each thread kPix pixels of
 // one column (rows y, y + 16 / kPix, ...): fewer, busier threads amortize
@@ -34,9 +35,13 @@
 // edge term to each of its sums. Then the backdrop, the fill rule, the
 // centers threshold and the writes. Every term keeps the Pallas op order,
 // including the 1e-6 nudge, the dy == 0 guard and the dyc != 0 select (the
-// area is 0 where dyc is 0, whatever the quotient: it can be inf there);
-// with --fmad=false the kernel and its plain version
-// (fine.coverage_area_plain) agree bit for bit.
+// area is 0 where dyc is 0, whatever the quotient: it can be inf there),
+// and the two fused multiply-adds that XLA contracts in the JAX package's
+// formula (x0 and x1, and d * d - c * c as fma(d, d, -(c * c)); for an
+// exactly vertical touch they move the area by up to 0.06, and the
+// goldens carry them): __fmaf_rn, with --fmad=false everywhere else, so
+// the kernel and its plain version (fine.coverage_area_plain, whose fma is
+// exact too) agree bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -48,18 +53,21 @@ constexpr int kPix = 4;  // pixels per thread, one column: 1, 2, 4 or 8
 constexpr int kThreads = 256 / kPix;
 constexpr int kChunk = kThreads / 16;   // touches staged per pass
 
-// The area of a touch in the row whose terms rt are (dyc != 0, t0 * dx,
-// t1 * dx, edge), at the pixel px columns right of the touch's x0 = sx.
-__device__ __forceinline__ float crossed_area(float4 rt, float sx, float px) {
+// The area of a touch with x extent dx in the row whose terms rt are
+// (dyc != 0, t0, t1, edge), at the pixel px columns right of the touch's
+// x0 = sx.
+__device__ __forceinline__ float crossed_area(float4 rt, float sx, float dx,
+                                              float px) {
   const float startx = sx - px;
-  const float x0 = startx + rt.y;
-  const float x1 = startx + rt.z;
+  const float x0 = __fmaf_rn(rt.y, dx, startx);
+  const float x1 = __fmaf_rn(rt.z, dx, startx);
   const float xmin = fminf(fminf(x0, x1), 1.0f) - 1e-6f;
   const float xmax = fmaxf(x0, x1);
   const float b = fminf(xmax, 1.0f);
   const float c = fmaxf(b, 0.0f);
   const float d = fmaxf(xmin, 0.0f);
-  const float a = (b + 0.5f * (d * d - c * c) - xmin) / (xmax - xmin);
+  const float a =
+      (b + 0.5f * __fmaf_rn(d, d, -(c * c)) - xmin) / (xmax - xmin);
   return a * rt.x;
 }
 
@@ -70,9 +78,10 @@ __global__ void __launch_bounds__(kThreads)
                          const int* __restrict__ rule,
                          const unsigned char* __restrict__ valid,
                          int centers, float* __restrict__ out) {
-  // per (touch, row): dyc, t0 * dx, t1 * dx, sgn * clamp(py - ye + 1, 0, 1)
+  // per (touch, row): dyc, t0, t1, sgn * clamp(py - ye + 1, 0, 1); per
+  // touch: x0, dx
   __shared__ float4 row_terms[kChunk][16];
-  __shared__ float start_x[kChunk];
+  __shared__ float2 start_dx[kChunk];
   const int f = blockIdx.x;
   const int tid = threadIdx.x;
   float* o = out + (size_t)f * 256 + tid;
@@ -111,19 +120,19 @@ __global__ void __launch_bounds__(kThreads)
       const float t1 = (y1 - y) * inv_dy;
       const float sgn = dx > 0.0f ? 1.0f : (dx < 0.0f ? -1.0f : 0.0f);
       row_terms[hi4][lo4] =
-          make_float4(y0 - y1, t0 * dx, t1 * dx,
+          make_float4(y0 - y1, t0, t1,
                       sgn * vt::clampf(row - ye + 1.0f, 0.0f, 1.0f));
-      if (lo4 == 0) start_x[hi4] = p.x;
+      if (lo4 == 0) start_dx[hi4] = make_float2(p.x, dx);
     }
     __syncthreads();
     const int n = min(kChunk, hi - c0);
     for (int k = 0; k < n; ++k) {
-      const float sx = start_x[k];
+      const float2 sd = start_dx[k];
 #pragma unroll
       for (int h = 0; h < kPix; ++h) {
         const float4 rt = row_terms[k][hi4 + h * (16 / kPix)];
         float area = 0.0f;
-        if (rt.x != 0.0f) area = crossed_area(rt, sx, px);
+        if (rt.x != 0.0f) area = crossed_area(rt, sd.x, sd.y, px);
         sum[h] += area + rt.w;
       }
     }

@@ -65,6 +65,22 @@ def _pixel_iota(device):
     return torch.remainder(lin, TILE_W), torch.floor(lin / TILE_W)
 
 
+def fma(a, b, c):
+    """The correctly rounded f32 ``a * b + c`` (one rounding, as CUDA's
+    ``__fmaf_rn``): the f64 product is exact, the f64 sum is rounded to
+    odd (its error, exact by TwoSum, moves an inexact even sum one ulp
+    towards it), and rounding that to f32 is then correct."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bv = s - p
+    err = (p - (s - bv)) + (c - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=s.device)
+    odd = torch.nextafter(s, torch.where(err > 0, inf, -inf))
+    return torch.where((err != 0) & even, odd, s).float()
+
+
 def coverage_delta(seg, y_edge):
     """Per-pixel winding contribution of tile-local segments: the exact-area
     term of ``fine.wgsl`` ``fill_path`` plus the left-edge y_edge term.
@@ -72,9 +88,14 @@ def coverage_delta(seg, y_edge):
     (N,) (1e9 if none) -> (N, 256) f32.
 
     The f32 op order is that of the JAX package's Pallas kernel
-    (``pallas_kernels._cov_kernel``), which kernel K5 keeps too. The
-    ``dyc != 0`` test selects rather than multiplies: ``a`` can be inf
-    where ``dyc`` is 0."""
+    (``pallas_kernels._cov_kernel``), which kernel K5 keeps too, with the
+    two fused multiply-adds that XLA contracts wherever the JAX package
+    compiles this formula (``x0 = fma(t0, dx, startx)``, and
+    ``d * d - c * c`` as ``fma(d, d, -(c * c))``): for an exactly vertical
+    touch the area term divides two differences of about 1e-6, which
+    rounding moves by up to 0.06, and the JAX package's frames and
+    goldens carry the fused rounding. The ``dyc != 0`` test selects rather
+    than multiplies: ``a`` can be inf where ``dyc`` is 0."""
     px, py = _pixel_iota(seg.device)
     p0x, p0y, p1x, p1y = (seg[:, k:k + 1] for k in range(4))
     dx = p1x - p0x
@@ -87,14 +108,14 @@ def coverage_delta(seg, y_edge):
     t0 = (y0 - y) * inv_dy
     t1 = (y1 - y) * inv_dy
     startx = p0x - px
-    x0 = startx + t0 * dx
-    x1 = startx + t1 * dx
+    x0 = fma(t0, dx, startx)
+    x1 = fma(t1, dx, startx)
     xmin = torch.clamp_max(torch.minimum(x0, x1), 1.0) - 1e-6
     xmax = torch.maximum(x0, x1)
     b = torch.clamp_max(xmax, 1.0)
     c = torch.clamp_min(b, 0.0)
     d = torch.clamp_min(xmin, 0.0)
-    a = (b + 0.5 * (d * d - c * c) - xmin) / (xmax - xmin)
+    a = (b + 0.5 * fma(d, d, -(c * c)) - xmin) / (xmax - xmin)
     area = torch.where(dyc != 0.0, a * dyc, torch.zeros((), device=seg.device))
     ye = y_edge[:, None]
     return area + torch.sign(dx) * torch.clamp(py - ye + 1.0, 0.0, 1.0)

@@ -305,13 +305,16 @@ class Scene:
     # ------------------------------------------------------------------
     def draw_glyphs(self, font):
         """Glyph-run builder (reference: Scene::draw_glyphs,
-        scene.rs:455-470). Needs the text host modules (``text.py``,
-        ``colr.py``), which this package does not have yet."""
-        raise NotImplementedError(
-            "glyph runs need the text host modules (text.py, colr.py), not "
-            "ported yet (ROADMAP item 16)")
+        scene.rs:455-470). Returns a DrawGlyphs builder."""
+        from .text import DrawGlyphs
+        return DrawGlyphs(self, font)
 
     def draw_text(self, text: str, x: float, y: float, size: float,
                   brush: Brush, transform: Affine = None, font=None) -> None:
         """Convenience: layout (advances-only) + draw."""
-        self.draw_glyphs(font)
+        from .text import default_font, layout_text
+        font = font or default_font()
+        glyphs = layout_text(font, size, text, (x, y))
+        (self.draw_glyphs(font).font_size(size).brush(brush)
+         .transform(transform or Affine.IDENTITY)
+         .draw(Fill.NON_ZERO, glyphs))

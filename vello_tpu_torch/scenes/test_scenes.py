@@ -5,14 +5,12 @@ mmark, many_draw_objects...). Used by snapshot tests and benchmarks.
 
 Each function returns a Scene; sizes are parameterised so the same scene
 works at test (small) and bench (large) resolutions.
-
-The scenes that need text or svg input (``text_scene``, ``text_heavy``,
-``tiger``) wait for the text and svg host modules (ROADMAP item 16).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
@@ -21,6 +19,7 @@ from ..kurbo import (Affine, BezPath, Rect, Stroke, circle_path, ellipse_path,
 from ..peniko import (BlendMode, Color, Compose, Extend, Fill, Gradient, Mix,
                       palette, stops)
 from ..scene import Scene
+from .reference_scenes import ASSETS_DIR
 
 COLORS = [palette.RED, palette.ORANGE, palette.YELLOW, palette.LIME,
           palette.CYAN, palette.BLUE, palette.PURPLE, palette.MAGENTA,
@@ -389,6 +388,71 @@ LAYER_SCENES = {
     "many_clips": many_clips,
     "deep_blend": deep_blend,
 }
+
+
+def text_scene(size: float = 256.0) -> Scene:
+    """Glyph-run scene (reference: text-heavy scenes, glyph tests)."""
+    s = Scene()
+    k = size / 256.0
+    s.draw_text("The quick brown", 8 * k, 40 * k, 26 * k, palette.WHITE)
+    s.draw_text("fox jumps over", 8 * k, 80 * k, 26 * k, palette.YELLOW)
+    s.draw_text("the lazy dog", 8 * k, 120 * k, 26 * k, palette.CYAN)
+    g = Gradient.linear((0, 140 * k), (size, 140 * k),
+                        stops(palette.RED, palette.MAGENTA, palette.BLUE))
+    s.draw_text("Gradients! 0123456789", 8 * k, 170 * k, 20 * k, g)
+    s.draw_text("tiny 8px text for coverage", 8 * k, 210 * k, 10 * k,
+                palette.LIME)
+    return s
+
+
+def text_heavy(size: float = 1024.0, lines: int = 40) -> Scene:
+    """Paragraph-scale glyph load (the text-heavy benchmark config)."""
+    from ..text import default_font, layout_text
+    s = Scene()
+    font = default_font()
+    msg = ("Sphinx of black quartz, judge my vow. " * 3)
+    for i in range(lines):
+        s.draw_text(msg, 8, 20 + i * (size - 30) / lines, 14, palette.WHITE,
+                    font=font)
+    return s
+
+
+DEVICE_SCENES["text_scene"] = text_scene
+
+
+TIGER_ASSET = os.path.join(ASSETS_DIR, "Ghostscript_Tiger.svg")
+
+
+def tiger(size: float = 256.0, asset: str = None) -> Scene:
+    """The Ghostscript tiger benchmark scene (~180 paths with fills+strokes),
+    auto-fitted to the viewport. Requires the SVG asset on disk."""
+    import os
+
+    from ..encoding.encoding import decode_segments
+    from ..utils.svg import load_svg
+
+    asset = asset or TIGER_ASSET
+    if not os.path.exists(asset):
+        raise FileNotFoundError(asset)
+    probe = load_svg(asset)
+    tags, data, transforms, styles = probe.encoding.packed_streams()
+    d = decode_segments(tags, data, transforms, styles)
+    t = d["transform"]
+    pts = d["points"]
+    x = pts[..., 0] * t[:, None, 0] + pts[..., 1] * t[:, None, 2] \
+        + t[:, None, 4]
+    y = pts[..., 0] * t[:, None, 1] + pts[..., 1] * t[:, None, 3] \
+        + t[:, None, 5]
+    import numpy as _np
+    npts = d["kind"] + 1
+    mask = _np.arange(4)[None, :] < npts[:, None]
+    x0, x1 = x[mask].min(), x[mask].max()
+    y0, y1 = y[mask].min(), y[mask].max()
+    s = 0.94 * size / max(x1 - x0, y1 - y0)
+    fit = Affine.translate(
+        (size - s * (x1 - x0)) / 2 - s * x0,
+        (size - s * (y1 - y0)) / 2 - s * y0) @ Affine.scale(s)
+    return load_svg(asset, transform=fit)
 
 
 def luminance_masks(size: float = 256.0) -> Scene:
