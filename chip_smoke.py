@@ -7,7 +7,7 @@ Phases (any failure exits non-zero):
   2. build: compile the port's CUDA kernels from vello_tpu_torch/csrc (one
      nvcc per source, all at once), and print what ptxas reports for each
      kernel: registers, shared memory, spills;
-  3. the six frame paths at full size, 1600x1600 through
+  3. the eleven frame paths at full size, 1600x1600 through
      vello_tpu_torch.Renderer(device="cuda").render_u8, each with the
      launch counts set to 0 just before it and read just after:
      a. msaa16: filled_mmark-30k (kernels K1 flatten, K2 touch expansion,
@@ -28,6 +28,19 @@ Phases (any failure exits non-zero):
         clipped push); its frame must equal, byte for byte, the scan
         formulation's frame of the same scene (msaa clip coverage prefixes
         are exact in f32);
+     g. msaa16_speed: filled_mmark-30k in msaa16 with render_mode "speed"
+        (the bench's msaa16_speed cell: colors rounded to bf16 into K4;
+        K1, K2, K3, K4);
+     h. gradient_image_speed: mixed_paint_mmark-30k, speed (K1, K2, K3,
+        K6's bf16 instantiation on bf16 src rows);
+     i. layered_speed: layered_mmark-30k, speed (K1, K2, K3, K7's bf16
+        instantiation once per non-empty draws op);
+     j. msaa16_unfused: filled_mmark-30k in msaa16 with
+        VELLO_TPU_NO_FUSED_GEOM=1, the unfused geometry path (the tag scan,
+        decode and library flatten, then K2 on the line soup; K3, K4; K1
+        not launched);
+     k. stroked_unfused: mmark-30k in msaa16, unfused (device strokes in
+        the library flatten; K2, K3, K4; K1 not launched);
      each with overflow 0, no retry, the host's tier and one launch of each
      of its kernels (K7: as many as the plan's non-empty draws ops; K8: as
      many as its clipped pushes); first-frame and warm per-frame times, peak
@@ -40,13 +53,17 @@ Phases (any failure exits non-zero):
      frame and on the stroke rows of the stroked frame; K2 and K3 twice: on
      the msaa16 and the stroked frame's inputs; K7 on the layered
      frame's largest draws op, a clone of its buffer for each run, since
-     it works in place; K8 twice: on the unrolled frame's largest clipped
+     it works in place; the bf16 instantiations of K6 on the
+     gradient_image_speed frame's inputs and of K7 on the layered_speed
+     frame's largest draws op, each equal to its plain version, its bytes
+     bound counting src at 2 bytes; K8 twice: on the unrolled frame's largest clipped
      push, and on a seeded (n_live, 256) input at the layered cell's live
      tier, uniform and in multiples of 1/16), with times for both (CUDA
      events, and the kernel's profiled time), the least time the card
      could take and, for K8, torch.cumsum's time; the paint evaluation's
      time on the gradient frame's inputs;
-  5. 512x512 frames of all six paths' scenes, and of a scene with every
+  5. 512x512 frames of all eleven paths' scenes (speed and unfused
+     included), and of a scene with every
      kind of layer (clip chain, pushed clip, luminance and alpha masks,
      multiply, blur filter, unbalanced push), rendered on the GPU and with
      the port on the CPU, within 1 u8 level;
@@ -143,10 +160,20 @@ KERNELS = {
                       "vello_tpu_torch/csrc/composite_src.cu",
                       "vello_tpu/ops/pallas_kernels.py:1084",
                       "gradient_image"),
+    "composite_src_bf16": ("composite_src_bf16", "composite_src",
+                           "composite_src_plain",
+                           "vello_tpu_torch/csrc/composite_src.cu",
+                           "vello_tpu/ops/pallas_kernels.py:1084",
+                           "gradient_image_speed"),
     "composite_over": ("composite_over", "composite_over",
                        "composite_over_plain",
                        "vello_tpu_torch/csrc/composite_over.cu",
                        "vello_tpu/ops/pallas_kernels.py:1183", "layered"),
+    "composite_over_bf16": ("composite_over_bf16", "composite_over",
+                            "composite_over_plain",
+                            "vello_tpu_torch/csrc/composite_over.cu",
+                            "vello_tpu/ops/pallas_kernels.py:1183",
+                            "layered_speed"),
     "cumsum": ("cumsum", "cumsum0", "cumsum0_plain",
                "vello_tpu_torch/csrc/cumsum.cu",
                "vello_tpu/ops/pallas_kernels.py:496", "layered_unrolled"),
@@ -165,12 +192,17 @@ KERNEL_STAGES = {
     "coverage_area": (("coverage_area_kernel",), "s06_coverage"),
     "composite_solid": (("composite_solid_kernel",), "s10_composite"),
     "composite_src": (("composite_src_kernel",), "s10_composite"),
+    "composite_src_bf16": (("composite_src_bf16_kernel",), "s10_composite"),
     "composite_over": (("composite_over_kernel",), "s20_op_draws"),
+    "composite_over_bf16": (("composite_over_bf16_kernel",),
+                            "s20_op_draws"),
     "cumsum": (("cumsum_totals_kernel", "cumsum_carries_kernel",
                 "cumsum_rows_kernel"), "s21_op_push"),
 }
 
-# frame path -> (scene, antialiasing, the launch counters of its kernels)
+# frame path -> (scene, antialiasing, the launch counters of its kernels);
+# a path named *_speed renders in render_mode "speed", one named *_unfused
+# with VELLO_TPU_NO_FUSED_GEOM=1 (``path_env``)
 PATHS = {
     "msaa16": ("filled_mmark", "msaa16",
                ("flatten", "expand_touches", "msaa_coverage",
@@ -190,8 +222,24 @@ PATHS = {
     "layered_unrolled": ("blend_grid", "msaa16",
                          ("flatten", "expand_touches", "msaa_coverage",
                           "composite_over", "cumsum")),
+    "msaa16_speed": ("filled_mmark", "msaa16",
+                     ("flatten", "expand_touches", "msaa_coverage",
+                      "composite_solid")),
+    "gradient_image_speed": ("mixed_paint_mmark", "msaa16",
+                             ("flatten", "expand_touches", "msaa_coverage",
+                              "composite_src_bf16")),
+    "layered_speed": ("layered_mmark", "msaa16",
+                      ("flatten", "expand_touches", "msaa_coverage",
+                       "composite_over_bf16")),
+    "msaa16_unfused": ("filled_mmark", "msaa16",
+                       ("expand_touches", "msaa_coverage",
+                        "composite_solid")),
+    "stroked_unfused": ("mmark", "msaa16",
+                        ("expand_touches", "msaa_coverage",
+                         "composite_solid")),
 }
 UNROLLED = "VELLO_TPU_UNROLLED_LAYERS"
+NO_FUSED_GEOM = "VELLO_TPU_NO_FUSED_GEOM"
 
 # phase 6: the ported reference scenes at the sizes of
 # tests/test_reference_goldens.py (SIZES), with its bars: the frame within
@@ -349,19 +397,38 @@ def make_scene(test_scenes, name: str, complexity: int, size: float):
     return getattr(test_scenes, name)(complexity, size)
 
 
+def render_params(RenderParams, path: str, size: int):
+    """The path's RenderParams at size x size: its antialiasing, and
+    render_mode "speed" for a *_speed path."""
+    return RenderParams(size, size, base_color=BASE,
+                        antialiasing=PATHS[path][1],
+                        render_mode=("speed" if path.endswith("_speed")
+                                     else "quality"))
+
+
 @contextlib.contextmanager
-def formulation(path: str):
-    """VELLO_TPU_UNROLLED_LAYERS=1 for the layered_unrolled path, unset for
-    every other; restored after."""
-    old = os.environ.pop(UNROLLED, None)
+def path_env(path: str):
+    """VELLO_TPU_UNROLLED_LAYERS=1 for the layered_unrolled path and
+    VELLO_TPU_NO_FUSED_GEOM=1 for a *_unfused path, both unset for every
+    other; restored after."""
+    old = {k: os.environ.pop(k, None) for k in (UNROLLED, NO_FUSED_GEOM)}
     if path == "layered_unrolled":
         os.environ[UNROLLED] = "1"
+    if path.endswith("_unfused"):
+        os.environ[NO_FUSED_GEOM] = "1"
     try:
         yield
     finally:
-        os.environ.pop(UNROLLED, None)
-        if old is not None:
-            os.environ[UNROLLED] = old
+        for k, v in old.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def k7_counter(path: str) -> str:
+    """The launch counter of a layered path's K7: composite_over, or
+    composite_over_bf16 on the bf16 src of a speed path."""
+    return [c for c in PATHS[path][2] if c.startswith("composite_over")][0]
 
 
 def fail(msg: str):
@@ -471,18 +538,18 @@ def capture_calls(module, frame, names):
     return captured
 
 
-def capture_largest_over(kernels, frame):
+def capture_largest_over(kernels, frame, name="composite_over"):
     """Run one frame with K7's wrapper wrapped; returns the (args, kwargs)
     of its draws op that walks the most rows, with a clone of the buffer
     as it was before that op (the kernel updates it in place), and the sum
-    of the bounds of all the frame's draws ops, ms."""
+    of the bounds of all the frame's draws ops, ms (``name`` the kernels
+    line's entry: composite_over, or composite_over_bf16 on bf16 src)."""
     best = {"walked": -1, "bound_ms": 0.0}
     original = kernels.composite_over
 
     def wrapped(src, dst, los, his):
         walked = int((his - los).clamp_min(0).sum())
-        best["bound_ms"] += bound("composite_over", (src, dst, los, his),
-                                  None)[0]
+        best["bound_ms"] += bound(name, (src, dst, los, his), None)[0]
         if walked > best["walked"]:
             best.update(walked=walked, args=(src, dst.clone(), los, his))
         return original(src, dst, los, his)
@@ -529,7 +596,7 @@ def capture_largest_cumsum(kernels, frame):
 def fresh_args(name, kargs):
     """The arguments of one kernel or plain run: K7 works in place, so each
     run gets its own copy of the buffer."""
-    if name == "composite_over":
+    if name.startswith("composite_over"):
         return (kargs[0], kargs[1].clone()) + tuple(kargs[2:])
     return kargs
 
@@ -660,14 +727,16 @@ def bound(name, args, out):
                                    + 16 * ns * OPS_MSAA_SAMPLE_ROW)
                + units["crossings"] * OPS_MSAA_CROSSING
                + units["touched_rows"] * 256 * ns * OPS_MSAA_RESOLVE)
-    elif name == "composite_over":
-        # in place: the walked src rows read, each tile with a non-empty
-        # walk read and written once, the bounds read
-        src, _, los, his = args
+    elif name.startswith("composite_over"):
+        # in place: the walked src rows read (2 bytes a value in bf16),
+        # each f32 tile with a non-empty walk read and written once, the
+        # bounds read
+        src, dst, los, his = args
         walked = int((his - los).clamp_min(0).sum())
         tiles = int((his > los).sum())
         nbytes = (_nbytes(los, his)
-                  + (walked + 2 * tiles) * src[0].numel() * src.element_size())
+                  + walked * src[0].numel() * src.element_size()
+                  + 2 * tiles * dst[0].numel() * dst.element_size())
         ops = walked * 256 * OPS_PER_OVER_COMPOSITE
     elif name.startswith("cumsum"):
         ops = args[0].numel()            # one add per element
@@ -706,7 +775,8 @@ def compare(name, got, ref):
     (the same op order: expected 0); K8 exact on msaa clip coverage
     (multiples of 1/16: every prefix is exact) and within 2e-6 of the
     largest prefix on uniform values (both sum in f64 and round once, in
-    different orders)."""
+    different orders); the bf16 instantiations of K6 and K7 exact (each
+    value widened exactly, then K6's and K7's f32 arithmetic)."""
     got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
     if got.shape != ref.shape or not np.isfinite(got).all():
         fail(f"{name}: shape {got.shape} vs {ref.shape} or non-finite")
@@ -726,9 +796,9 @@ def compare(name, got, ref):
         bar = 2e-6 * float(np.abs(ref).max())
         if err > bar:
             fail(f"cumsum_layered_tier: max abs err {err} > {bar}")
-    elif name == "composite_over":
+    elif name.startswith("composite_over") or name.endswith("_bf16"):
         if err != 0.0:
-            fail(f"composite_over: max abs err {err} (expected 0: the same "
+            fail(f"{name}: max abs err {err} (expected 0: the same "
                  f"arithmetic in the same order)")
     elif not np.allclose(got, ref, rtol=0, atol=2e-5):
         fail(f"{name}: max abs err {err} > 2e-5")
@@ -742,22 +812,22 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
     from vello_tpu_torch.pipeline import layered
     from vello_tpu_torch.utils.profile import profile_stages
     scene_name, aa, used = PATHS[path]
-    params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing=aa)
+    params = render_params(RenderParams, path, SIZE)
     rs = resolve(scene.encoding, params)
     caps = rs.capacities(params)
     expected = {name: int(name in used) for name in kernels.launches}
     if path.startswith("layered"):
-        # K7 launches once per draws op with a non-empty path range, K8
-        # once per clipped push of the unrolled formulation
+        # K7 (f32 or bf16 src) launches once per draws op with a non-empty
+        # path range, K8 once per clipped push of the unrolled formulation
         plan = layered.build_layer_plan(rs)[1]
-        expected["composite_over"] = layered.nonempty_draws(plan)
+        expected[k7_counter(path)] = layered.nonempty_draws(plan)
         if "cumsum" in used:
             expected["cumsum"] = layered.clipped_pushes(plan)
     del rs
     r = Renderer(device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with formulation(path):
+    with path_env(path):
         kernels.reset_launches()
         t0 = time.perf_counter()
         img = r.render_u8(scene, params)
@@ -801,7 +871,7 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
     # the per-stage device time of three traced warm frames; the frame it
     # renders first replaces the renderer's frame thunk, not ``frame``
-    with formulation(path):
+    with path_env(path):
         stages = r.profile(scene, params)
     in_frame = check_stages(path, stages, r.last_profile["kernels"], used,
                             launches)
@@ -1032,7 +1102,7 @@ def main():
     # the same bytes, and the scan frame's warm time beside the unrolled's
     scene_name, aa, _ = PATHS["layered_unrolled"]
     r_scan = Renderer(device="cuda")
-    with formulation("layered"):
+    with path_env("layered"):
         scan_img = r_scan.render_u8(
             scenes[scene_name], RenderParams(SIZE, SIZE, base_color=BASE,
                                              antialiasing=aa))
@@ -1058,11 +1128,11 @@ def main():
     # 4. each kernel against its plain version, on its path's inputs
     captured = {}
     for path in PATHS:
-        if path == "layered":
-            captured["composite_over"], frame_bound = capture_largest_over(
-                kernels, frames[path])
-            frame_share(path, "composite_over", frame_bound, in_frame,
-                        path_launches)
+        if path in ("layered", "layered_speed"):
+            name = k7_counter(path)
+            captured[name], frame_bound = capture_largest_over(
+                kernels, frames[path], name)
+            frame_share(path, name, frame_bound, in_frame, path_launches)
             continue
         if path == "layered_unrolled":
             captured["cumsum"], frame_bound = capture_largest_cumsum(
@@ -1071,12 +1141,18 @@ def main():
                         path_launches)
             continue
         wrappers = {KERNELS[n][1] for n in KERNELS if KERNELS[n][5] == path}
+        if not wrappers:
+            continue
         calls = capture_calls(kernels, frames[path], sorted(wrappers))
         for name, spec in KERNELS.items():
             if spec[5] == path:
                 captured[name] = calls[spec[1]]
     if captured["flatten_stroke_rows"][0][0].shape[1] != 21:
         fail("the stroked frame gave K1 no stroke rows")
+    for name in ("composite_src_bf16", "composite_over_bf16"):
+        if captured[name][0][0].dtype != torch.bfloat16:
+            fail(f"{name}: the speed frame gave it "
+                 f"{captured[name][0][0].dtype} src")
     # K8 at the layered cell's live tier: (n_live, 256) uniform values
     n_live = profiles["layered"]["n_live"]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1147,17 +1223,20 @@ def main():
 
     # 5. smaller frames: GPU kernels against the port's CPU plain path
     checks = [(path, scene_name, aa, make_scene(
-        test_scenes, scene_name, 1 if path == "layered" else 4, 512.0))
-        for path, (scene_name, aa, _) in PATHS.items()]
+        test_scenes, scene_name, 1 if scene_name == "layered_mmark" else 4,
+        512.0)) for path, (scene_name, aa, _) in PATHS.items()]
     checks.append(("layer_features", "layer_features", "msaa16",
                    layer_features(512.0)))
     for path, scene_name, aa, small in checks:
-        sp = RenderParams(512, 512, base_color=BASE, antialiasing=aa)
-        with formulation(path):
+        sp = (RenderParams(512, 512, base_color=BASE, antialiasing=aa)
+              if path == "layer_features"
+              else render_params(RenderParams, path, 512))
+        with path_env(path):
             gpu_img = Renderer(device="cuda").render_u8(small, sp)
             cpu_img = Renderer(device="cpu").render_u8(small, sp)
         diff = np.abs(gpu_img.astype(np.int16) - cpu_img.astype(np.int16))
-        print(f"image_check 512x512 {path} ({scene_name} {aa}): max diff "
+        print(f"image_check 512x512 {path} ({scene_name} {aa} "
+              f"{sp.render_mode}): max diff "
               f"{int(diff.max())}, identical "
               f"{float((diff == 0).mean()):.6f}")
         if diff.max() > 1:

@@ -565,3 +565,89 @@ def test_renderer_profile_names_the_stages(cuda):
                           ("expand_touches_kernel", "s03_touch_expand")):
         where = {st for st, k in split if kernel in k}
         assert where == {stage}, (kernel, where)
+
+
+@pytest.mark.parametrize("kernel", ["composite_src", "composite_over"])
+def test_bf16_src_kernels_match_plain(cuda, kernel):
+    """The bf16 instantiations of K6 and K7 (render_mode "speed") against
+    their plain versions on bf16 src: each value widened exactly, the
+    arithmetic and its order the f32 kernel's, so the bar is equality;
+    each launch counts under its own name."""
+    rng = np.random.default_rng(5)
+    f, g = 3000, 97
+    a = rng.uniform(size=(f, 1, 256))
+    a[rng.uniform(size=f) < 0.2] = 1.0
+    src = torch.from_numpy(np.concatenate(
+        [rng.uniform(size=(f, 3, 256)) * a, a], axis=1).astype(np.float32))
+    src = src.to(cuda).to(torch.bfloat16)
+    bounds = np.sort(rng.integers(0, f + 1, g + 1)).astype(np.int32)
+    los, his = bounds[:-1].copy(), bounds[1:].copy()
+    his[::5] = los[::5]                          # some empty walks
+    los, his = torch.from_numpy(los).to(cuda), torch.from_numpy(his).to(cuda)
+    kernels.reset_launches()
+    if kernel == "composite_src":
+        base = torch.tensor([0.1, 0.2, 0.3, 1.0], device=cuda)
+        got = kernels.composite_src(src, base, los, his)
+        ref = fine.composite_src_plain(src, base, los, his)
+    else:
+        buf = torch.rand((g, 4, 256), device=cuda)
+        got = kernels.composite_over(src, buf.clone(), los, his)
+        ref = fine.composite_over_plain(src, buf.clone(), los, his)
+        torch.testing.assert_close(got[::5], buf[::5], rtol=0, atol=0)
+    assert kernels.launches[f"{kernel}_bf16"] == 1
+    assert kernels.launches[kernel] == 0
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    # the same values in f32 through the f32 kernel: the same result
+    f32 = (kernels.composite_src(src.float(), base, los, his)
+           if kernel == "composite_src"
+           else kernels.composite_over(src.float(), buf.clone(), los, his))
+    torch.testing.assert_close(got, f32, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("scene,composite", [
+    (filled_mmark, "composite_solid"), (mixed_paint_mmark,
+                                        "composite_src_bf16"),
+    (layered_mmark, "composite_over_bf16")])
+def test_gpu_speed_frames_equal_cpu_frames(cuda, scene, composite):
+    """render_mode "speed" on the card: solid colors rounded to bf16 into
+    K4, bf16 src rows into K6's and K7's bf16 instantiations (K7 once per
+    non-empty draws op); the GPU frame within 1 u8 level of the CPU frame,
+    as for quality (the paint evaluation's library ops)."""
+    params = RenderParams(256, 256, base_color=(0.1, 0.1, 0.1, 1.0),
+                          antialiasing="msaa16", render_mode="speed")
+    rs = resolve(scene(2, 256.0).encoding, params)
+    kernels.reset_launches()
+    r = Renderer(device=cuda)
+    gpu = r.render_resolved(rs, params, out="rgba8")
+    counts = dict(kernels.launches)
+    want = {k: 0 for k in counts}
+    want.update(flatten=1, expand_touches=1, msaa_coverage=1)
+    want[composite] = (layered.nonempty_draws(layered.build_layer_plan(rs)[1])
+                       if r.last_profile["layered"] else 1)
+    assert counts == want, counts
+    cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
+    diff = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.99
+
+
+@pytest.mark.parametrize("aa", ["msaa16", "area"])
+@pytest.mark.parametrize("scene", [filled_mmark, mmark])
+def test_gpu_unfused_frames_equal_cpu_frames(cuda, monkeypatch, scene, aa):
+    """VELLO_TPU_NO_FUSED_GEOM on the card: the tag scan, decode and
+    library flatten, then K2 on the line soup; K1 not launched. The GPU
+    frame equals the CPU frame, and is within 1 level of the fused GPU
+    frame."""
+    params = RenderParams(256, 256, base_color=(0.1, 0.1, 0.1, 1.0),
+                          antialiasing=aa)
+    rs = resolve(scene(2, 256.0).encoding, params)
+    fused = Renderer(device=cuda).render_resolved(rs, params, out="rgba8")
+    monkeypatch.setenv("VELLO_TPU_NO_FUSED_GEOM", "1")
+    kernels.reset_launches()
+    gpu = Renderer(device=cuda).render_resolved(rs, params, out="rgba8")
+    counts = dict(kernels.launches)
+    coverage = "msaa_coverage" if aa == "msaa16" else "coverage_area"
+    used = {"expand_touches", coverage, "composite_solid"}
+    assert counts == {k: int(k in used) for k in counts}, counts
+    cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
+    np.testing.assert_array_equal(gpu, cpu)
+    assert np.abs(gpu.astype(np.int16) - fused.astype(np.int16)).max() <= 1

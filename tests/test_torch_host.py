@@ -5,10 +5,16 @@ Each scene is built twice, once through each package, by the same builder
 given the package's ``scenes.test_scenes`` module, and resolved at 256x256.
 Every field of the two ``ResolvedScene``s must be equal (arrays with
 ``np.array_equal`` and the same dtype) and so must the capacity tiers:
-the copy is the same code, so the bar is equality."""
+the copy is the same code, so the bar is equality.
+
+Each package's ``native.py`` falls back to its numpy code, silently, when
+its C++ library fails to build or load, and the C++ and numpy capacity
+estimators disagree (``test_stroke_estimators_differ``), so the two
+packages are held equal on the same estimator (``same_estimator``)."""
 
 import dataclasses
 import importlib
+import time
 
 import numpy as np
 import pytest
@@ -58,9 +64,54 @@ def _assert_same(got, ref, what):
         assert got == ref, (what, got, ref)
 
 
+def _native(pkg):
+    return importlib.import_module(f"{pkg.__name__}.native")
+
+
+def _load_native(native, tries: int = 3) -> bool:
+    """Load a package's C++ library, clearing its cached failure and
+    trying again: the JAX package's loader rebuilds
+    native/libvello_native.so in place when the source is newer, so a
+    test worker can read a half-written file while another builds it."""
+    for i in range(tries):
+        if native.available():
+            return True
+        native._lib = None
+        time.sleep(0.2 * i)
+    return native.available()
+
+
+@pytest.fixture
+def same_estimator(monkeypatch):
+    """Both packages on the C++ estimator, or, when either library still
+    fails to load, both on numpy for this test."""
+    mods = [_native(vello_tpu), _native(vello_tpu_torch)]
+    if not all([_load_native(m) for m in mods]):
+        for m in mods:
+            monkeypatch.setattr(m, "_lib", False)
+
+
+@pytest.mark.parametrize("pkg", [vello_tpu, vello_tpu_torch],
+                         ids=["jax", "port"])
+def test_stroke_estimators_differ(pkg, monkeypatch):
+    """A fault of the reference that the port copies: on the stroked
+    mmark(1, 256.) the C++ capacity estimator gives 27594 est_touches and
+    the numpy fallback 27601 (the same lines, 24185, and the same tier),
+    in both packages. The fallback is silent, so a package whose library
+    fails to load resolves the scene to other estimates."""
+    native = _native(pkg)
+    assert _load_native(native)
+    cpp, cpp_key = _resolve(pkg, "mmark", "msaa16")
+    monkeypatch.setattr(native, "_lib", False)
+    npy, npy_key = _resolve(pkg, "mmark", "msaa16")
+    assert (cpp.est_touches, npy.est_touches) == (27594, 27601)
+    assert cpp.est_lines == npy.est_lines == 24185
+    assert cpp_key == npy_key
+
+
 @pytest.mark.parametrize("aa", ["area", "msaa16"])
 @pytest.mark.parametrize("name", sorted(SCENES))
-def test_resolve_matches_jax(name, aa):
+def test_resolve_matches_jax(same_estimator, name, aa):
     got, got_key = _resolve(vello_tpu_torch, name, aa)
     ref, ref_key = _resolve(vello_tpu, name, aa)
     assert type(got).__module__ == "vello_tpu_torch.encoding.resolve"

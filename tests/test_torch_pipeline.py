@@ -331,22 +331,3 @@ def test_render_and_frame_thunk():
     np.testing.assert_array_equal(img.numpy(), u8)
     from vello_tpu_torch.utils.png import to_rgba8
     assert np.abs(to_rgba8(f32).astype(int) - u8.astype(int)).max() <= 1
-
-
-def test_unported_features_raise():
-    """render_mode='speed' still raises, on the layered path too (layers
-    render since the layered compositor and kernel K7 were ported:
-    tests/test_torch_layers_*.py; text since the text host modules were
-    copied: tests/test_torch_text.py)."""
-    params = RenderParams(SIZE, SIZE, base_color=BASE, antialiasing="msaa16")
-    pkg = vello_tpu_torch
-    scene = pkg.Scene()
-    scene.push_clip_layer(pkg.Affine.identity(),
-                          pkg.kurbo.circle_path(64, 64, 40))
-    scene.fill(pkg.Fill.NON_ZERO, pkg.Affine.identity(), pkg.palette.RED,
-               None, pkg.kurbo.circle_path(64, 64, 30))
-    scene.pop_layer()
-    speed = dataclasses.replace(params, render_mode="speed")
-    for s in (mmark(pkg), scene):
-        with pytest.raises(NotImplementedError, match="speed"):
-            Renderer(device="cpu").render_u8(s, speed)

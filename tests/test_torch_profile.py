@@ -44,9 +44,11 @@ def _stage_sequence(frame):
     return seq
 
 
-def _frame(scene, aa):
+def _frame(scene, aa, speed=False):
     r = Renderer(device="cpu")
-    r.render_u8(scene, RenderParams(SIZE, SIZE, antialiasing=aa))
+    r.render_u8(scene, RenderParams(SIZE, SIZE, antialiasing=aa,
+                                    render_mode="speed" if speed
+                                    else "quality"))
     return r.frame_thunk()
 
 
@@ -66,6 +68,17 @@ def test_jax_scopes_are_the_expected_ones():
 @pytest.mark.parametrize("aa", ["msaa16", "area"])
 def test_flat_frame_ranges_in_jax_order(aa):
     assert _stage_sequence(_frame(filled_mmark(1, float(SIZE)), aa)) == FLAT
+
+
+@pytest.mark.parametrize("mode", ["unfused", "speed"])
+def test_unfused_and_speed_frame_ranges_in_jax_order(monkeypatch, mode):
+    """The unfused geometry path opens the same ranges (the tag scan,
+    decode and flatten under s02, the touch expansion under s03), and so
+    does a speed frame."""
+    if mode == "unfused":
+        monkeypatch.setenv("VELLO_TPU_NO_FUSED_GEOM", "1")
+    assert _stage_sequence(_frame(filled_mmark(1, float(SIZE)), "msaa16",
+                                  mode == "speed")) == FLAT
 
 
 def test_layered_frame_ranges_in_jax_order():
@@ -274,3 +287,27 @@ def test_a_cpu_trace_reads_as_no_device_time():
     per, total, _ = stage_kernel_ms(prof.profiler.kineto_results.events(), 1)
     assert total == 0.0
     assert per == {}
+
+
+def test_profile_stages_tool_prints_one_json_object(capsys):
+    """``python -m vello_tpu_torch.tools.profile_stages [complexity]
+    [size]`` (the twin of tools/profile_stages.py): the host encode group,
+    then the msaa16, area and msaa16_speed paths, each with its stages
+    (empty on the CPU: no device trace) and tier; the last line printed
+    is the JSON object it returns."""
+    import json
+
+    from vello_tpu_torch.tools import profile_stages
+    out = profile_stages.main(["1", str(SIZE)])
+    last = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(last) == json.loads(json.dumps(out))
+    assert set(out) == {"encode", "n_paths", "n_segs", "est_lines", "size",
+                        "device", "paths"}
+    assert set(out["encode"]) == {"build_s", "encode_streams_s",
+                                  "resolve_s"}
+    assert all(v > 0.0 for v in out["encode"].values())
+    assert out["size"] == SIZE and out["device"] == "cpu"
+    assert list(out["paths"]) == ["msaa16", "area", "msaa16_speed"]
+    for path in out["paths"].values():
+        assert path["stages_ms"] == {}
+        assert {"lines", "touches", "path_tiles"} <= set(path["tier"])

@@ -1,6 +1,7 @@
-"""The port's Renderer API against the JAX package's: the environment
-switches it does not run raise, ``warmup`` and the keys of
-``last_profile`` (on the CPU, the kernels' plain versions)."""
+"""The port's Renderer API against the JAX package's: ``warmup`` and the
+keys of ``last_profile`` (on the CPU, the kernels' plain versions). The
+unfused geometry path that ``VELLO_TPU_NO_FUSED_GEOM`` selects renders
+through every entry point: tests/test_torch_unfused.py."""
 
 import numpy as np
 import pytest
@@ -21,25 +22,6 @@ def _scene():
     s.fill(vt.Fill.EVEN_ODD, a, vt.Color(0.2, 0.5, 0.9, 0.7), None,
            star_path(28, 26, 5, 6, 18))
     return s
-
-
-@pytest.mark.parametrize("aa", ["area", "msaa16"])
-def test_no_fused_geom_raises(monkeypatch, aa):
-    """VELLO_TPU_NO_FUSED_GEOM selects the JAX package's non-fused
-    geometry, which the port does not have: every entry point raises,
-    naming the ROADMAP item, instead of rendering the fused path."""
-    params = RenderParams(SIZE, SIZE, antialiasing=aa)
-    monkeypatch.setenv("VELLO_TPU_NO_FUSED_GEOM", "1")
-    r = Renderer(device="cpu")
-    rs = resolve(_scene().encoding, params)
-    for call in (lambda: r.render(_scene(), params),
-                 lambda: r.render_u8(_scene(), params),
-                 lambda: r.warmup(_scene(), params),
-                 lambda: r.render_resolved(rs, params)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-            call()
-    monkeypatch.delenv("VELLO_TPU_NO_FUSED_GEOM")
-    assert r.render_u8(_scene(), params).shape == (SIZE, SIZE, 4)
 
 
 @pytest.mark.parametrize("out", ["f32", "rgba8"])

@@ -18,7 +18,8 @@ import torch
 from ..encoding.config import Capacities, RenderParams, next_size
 from ..encoding.resolve import PAINT_IMAGE, ResolvedScene, resolve
 from ..pipeline import layered
-from ..pipeline.render import PipelineStatic, get_pipeline
+from ..pipeline.render import (PipelineStatic, get_pipeline,
+                               wants_fused_geom)
 from ..scene import Scene
 from ..utils.profile import profile_stages
 
@@ -174,26 +175,19 @@ class Renderer:
                 "not ported (ROADMAP: not ported unless a need appears)")
 
     def _device_bufs(self, rs: ResolvedScene, caps: Capacities,
-                     params: RenderParams, paint8: bool) -> dict:
+                     params: RenderParams, slim: bool, paint8: bool) -> dict:
         key = (caps.key(), params.width, params.height,
-               tuple(params.base_color), str(self.device), paint8)
+               tuple(params.base_color), str(self.device), slim, paint8)
         cached = getattr(rs, _CACHE_ATTR, None)
         if cached is not None and cached[0] == key:
             return cached[1]
-        bufs = to_torch(pack_buffers(rs, caps, params, slim=True,
+        bufs = to_torch(pack_buffers(rs, caps, params, slim=slim,
                                      paint8=paint8), self.device)
         object.__setattr__(rs, _CACHE_ATTR, (key, bufs))
         return bufs
 
     def render_resolved(self, rs: ResolvedScene, params: RenderParams,
                         out: str = "f32") -> np.ndarray:
-        # the port runs the fused geometry path only (here rather than in
-        # _check_params: every entry point and the callers of
-        # render_resolved pass this way)
-        if os.environ.get("VELLO_TPU_NO_FUSED_GEOM"):
-            raise NotImplementedError(
-                "the non-fused geometry path (VELLO_TPU_NO_FUSED_GEOM) is "
-                "not ported yet (ROADMAP item 9)")
         t_start = time.time()
         caps = rs.capacities(params)
         kinds = set(int(k) for k in rs.paint_kind)
@@ -208,9 +202,13 @@ class Renderer:
             if "path_clipalpha" in plan:
                 plan = dict(plan, path_clipalpha=torch.from_numpy(
                     plan["path_clipalpha"]).to(self.device))
+        # VELLO_TPU_NO_FUSED_GEOM: the unfused geometry path, which reads
+        # the tag and point streams (slim=False packs them); as in the JAX
+        # package, those buffers keep the full paint_pack too
+        slim = wants_fused_geom()
         # solid colors only: paint_pack shrinks to 8 columns (layers read
         # its column 39, the clip-path flag)
-        paint8 = kinds <= {0} and not has_layers
+        paint8 = slim and kinds <= {0} and not has_layers
         kinds = tuple(sorted(kinds))
         # live-fragment cap: an exact host upper bound plus a small margin
         # for f32 tile-assignment jitter; bit 16 doubles it on a retry
@@ -233,13 +231,13 @@ class Renderer:
                 lowp=params.render_mode == "speed",
                 n_live=0 if n_live >= caps.n_path_tiles else n_live,
                 has_edge=has_edge, has_stroke=bool(rs.has_stroke),
-                max_lines=int(rs.max_lines))
+                max_lines=int(rs.max_lines), fused_geom=slim)
             if has_layers:
                 fn = layered.get_layered_pipeline(static, plan,
                                                   u8_out=(out == "rgba8"))
             else:
                 fn = get_pipeline(static, u8_out=(out == "rgba8"))
-            bufs = self._device_bufs(rs, caps, params, paint8)
+            bufs = self._device_bufs(rs, caps, params, slim, paint8)
             frame = (lambda f=fn, b=bufs: f(b))
             self._frame = frame
             img, overflow_t = frame()

@@ -243,14 +243,15 @@ def composite_src_plain(src, base_premul, los, his):
     """Plain version of kernel K6: per tile g, the ordered src-over of the
     premultiplied src rows [los[g], his[g]) onto the premultiplied base
     color, dst = src + (1 - src.a) * dst (the sequential walk of
-    fine.wgsl). src (F, 4, 256) -> (G, 4, 256)."""
+    fine.wgsl). src (F, 4, 256) f32, or bf16 (render_mode "speed"), each
+    row widened to f32 as the Pallas kernel does -> (G, 4, 256) f32."""
     g = los.shape[0]
     dst = base_premul[None, :, None].expand(g, 4, NPX).clone()
     n = (his - los).clamp_min(0)
     kmax = int(n.max()) if g else 0
     for k in range(kmax):
         j = (los.long() + k).clamp_max(src.shape[0] - 1)
-        s = src[j]                                        # (G, 4, 256)
+        s = src[j].float()                                # (G, 4, 256)
         upd = s + (1.0 - s[:, 3:4]) * dst
         dst = torch.where((k < n)[:, None, None], upd, dst)
     return dst
@@ -261,7 +262,8 @@ def composite_over_plain(src, dst, los, his):
     premultiplied src rows [los[g], his[g]) onto the tile's current value
     in ``dst``, dst = src + (1 - src.a) * dst, IN PLACE (the layered
     draws op; tiles with an empty walk are neither read nor written).
-    src (F, 4, 256), dst (G, 4, 256). Returns dst."""
+    src (F, 4, 256) f32, or bf16 widened to f32 row by row; dst (G, 4, 256)
+    f32. Returns dst."""
     n = (his - los).clamp_min(0)
     tiles = torch.nonzero(n > 0).flatten()
     if tiles.numel() == 0:
@@ -269,7 +271,7 @@ def composite_over_plain(src, dst, los, his):
     d = dst[tiles]
     lo, n = los[tiles].long(), n[tiles]
     for k in range(int(n.max())):
-        s = src[(lo + k).clamp_max(src.shape[0] - 1)]
+        s = src[(lo + k).clamp_max(src.shape[0] - 1)].float()
         upd = s + (1.0 - s[:, 3:4]) * d
         d = torch.where((k < n)[:, None, None], upd, d)
     dst[tiles] = d

@@ -1,13 +1,16 @@
 """Device-side flattening: curves -> line soup with viewport clipping
-(counterpart of ``vello_tpu/ops/flatten.py``, fused path only).
+(counterpart of ``vello_tpu/ops/flatten.py``).
 
-Segment-scale work (degree elevation, Wang counts, stroke mini counts and
-join normals, the count scan) is PyTorch; the per-line work (cubic
-evaluation at uniform t, stroke slot lines, y trim, x clamp, left-edge
-detection, DDA touch counts) is kernel K1 in ``ops/kernels.py``. The f32
-op order follows the JAX package so that counts agree bit for bit with it
-and with the host estimator; ``rsqrt`` is ``1 / sqrt`` (correctly rounded
-on both devices, as XLA lowers it).
+Fused path (``flatten_fused``): segment-scale work (degree elevation, Wang
+counts, stroke mini counts and join normals, the count scan) is PyTorch;
+the per-line work (cubic evaluation at uniform t, stroke slot lines, y
+trim, x clamp, left-edge detection, DDA touch counts) is kernel K1 in
+``ops/kernels.py``. Unfused path (``flatten``, under
+``VELLO_TPU_NO_FUSED_GEOM``): the JAX package's XLA formulation in library
+PyTorch, from the decoded tag slots to the line soup and its left-edge
+verticals. The f32 op order follows the JAX package so that counts agree
+bit for bit with it and with the host estimator; ``rsqrt`` is
+``1 / sqrt`` (correctly rounded on both devices, as XLA lowers it).
 """
 
 from __future__ import annotations
@@ -175,12 +178,14 @@ def stroke_mini_counts(cub, hw_dev, tol: float = FLATTEN_TOL,
     return torch.maximum(wang, m_turn).clamp(1, max_lines).to(torch.int32)
 
 
-def _stroke_rows(cub, seg_hw, seg_join, max_lines: int):
+def _stroke_rows(cub, seg_hw, seg_join, max_lines: int, is_stroke=None):
     """(counts of stroked segments, is_stroke, (S, 5) f32 stroke columns
     [hw, jnx, jny, m, join]). The join normal is the NEXT segment's
     first-chord normal, computed here at segment scale so that the
-    kernel's bevel corner matches the next quad's."""
-    is_stroke = seg_hw > 0.0
+    kernel's bevel corner matches the next quad's. ``is_stroke`` defaults
+    to ``seg_hw > 0`` (the host-compacted segments of the fused path)."""
+    if is_stroke is None:
+        is_stroke = seg_hw > 0.0
     m = stroke_mini_counts(cub, seg_hw, max_lines=max_lines)
     m = torch.where(is_stroke, m, torch.zeros_like(m))
     nxt = torch.roll(cub, -1, dims=0)
@@ -233,3 +238,154 @@ def flatten_fused(seg_pts, seg_kind, seg_path, n_segs, n_lines_cap: int,
     linepack = kernels.flatten_lines(spack, incl, n_lines_cap, width, height)
     return {"linepack": linepack, "total_lines": total,
             "overflow": (total > n_lines_cap).to(torch.int32)}
+
+
+def _cubic_at(c, t):
+    """Points of the cubics c (L, 4, 2) at t (L,), in the JAX package's op
+    order (``mt ** 3`` is ``mt * mt * mt`` there too)."""
+    t = t[:, None]
+    mt = 1.0 - t
+    return (mt * mt * mt * c[:, 0] + 3 * mt * mt * t * c[:, 1]
+            + 3 * mt * t * t * c[:, 2] + t * t * t * c[:, 3])
+
+
+def flatten(decoded: dict, n_lines_cap: int, n_edge_cap: int, width: float,
+            height: float, rpack=None, has_stroke: bool = False,
+            max_lines: int = MAX_LINES_PER_SEG) -> dict:
+    """The unfused flatten: ``pathtag.decode_and_transform``'s tag slots
+    -> the y-trimmed, x-clamped line soup and its left-edge verticals
+    (``vello_tpu/ops/flatten.py`` ``flatten``).
+
+    ``rpack`` (P, 6) f32, optional: per-path tile-rect fields, gathered at
+    segment scale and carried along the line expansion (``line_rect``,
+    ``edge_rect``). ``has_stroke``: ``decoded`` carries "hw" and "join",
+    and stroked segments emit 7 lines per centerline mini
+    (``stroke_slot_line``).
+
+    Returns {"lines" (L, 4) f32 (x0, y0, x1, y1), "line_path" (L,) i32
+    (2**30 for a dead line), "line_valid" (L,) bool, "line_real" (L,) bool
+    (a real slot, even if degenerate), "edge_lines" (E, 4), "edge_path",
+    "edge_valid", "overflow" (lines over the cap 1, edges over the cap 2)
+    [, "line_rect" (L, 6), "edge_rect" (E, 6)]}."""
+    kind = decoded["kind"]
+    cub = elevate_to_cubic(decoded["points"], kind)
+    counts = wang_counts(cub, kind, max_lines=max_lines)
+    s = cub.shape[0]
+    path_ix = decoded["path_ix"]
+    if has_stroke:
+        st_counts, is_stroke, scols = _stroke_rows(
+            cub, decoded["hw"], decoded["join"], max_lines,
+            is_stroke=(decoded["hw"] > 0.0) & (kind > 0))
+        counts = torch.where(is_stroke, st_counts, counts)
+    incl = torch.cumsum(counts, 0, dtype=torch.int32)
+    parts = [cub.reshape(s, 8), counts.to(torch.float32)[:, None],
+             (incl - counts).to(torch.float32)[:, None],
+             path_ix.to(torch.float32)[:, None]]
+    if rpack is not None:
+        pclip = path_ix.long().clamp(0, rpack.shape[0] - 1)
+        parts.append(rpack[pclip])                        # (S, 6)
+    if has_stroke:
+        parts.append(scols)
+    pack = torch.cat(parts, dim=1)                        # (S, 11[+6][+5])
+    seg_ix, valid, total = expand_by_counts(counts, n_lines_cap)
+    overflow_lines = (total > n_lines_cap).to(torch.int32)
+
+    row = pack[seg_ix.long()]                             # (L, 11+)
+    c = row[:, :8].reshape(-1, 4, 2)
+    n = torch.clamp_min(row[:, 8], 1.0)
+    sub_f = torch.arange(n_lines_cap, dtype=torch.float32,
+                         device=cub.device) - row[:, 9]
+    t0 = sub_f / n
+    t1 = (sub_f + 1.0) / n
+    row_path = row[:, 10].to(torch.int32)
+    if has_stroke:
+        sbase = pack.shape[1] - 5
+        mrow = row[:, sbase + 3]
+        st = mrow > 0.5
+        msafe = torch.clamp_min(mrow, 1.0)
+        si = torch.floor((sub_f + 0.5) * (1.0 / STROKE_SLOTS))
+        se = sub_f - STROKE_SLOTS * si
+        t0 = torch.where(st, si / msafe, t0)
+        t1 = torch.where(st, (si + 1.0) / msafe, t1)
+    p0 = _cubic_at(c, t0)
+    p1 = _cubic_at(c, t1)
+    if has_stroke:
+        p2 = _cubic_at(c, (si + 2.0) / msafe)
+        ax, ay, bx, by = stroke_slot_line(
+            p0[:, 0], p0[:, 1], p1[:, 0], p1[:, 1], p2[:, 0], p2[:, 1],
+            row[:, sbase], row[:, sbase + 1], row[:, sbase + 2],
+            row[:, sbase + 4], si, se, msafe)
+        p0 = torch.stack([torch.where(st, ax, p0[:, 0]),
+                          torch.where(st, ay, p0[:, 1])], dim=-1)
+        p1 = torch.stack([torch.where(st, bx, p1[:, 0]),
+                          torch.where(st, by, p1[:, 1])], dim=-1)
+
+    # y trim (parametric; untrimmed endpoints stay bit-identical)
+    zero = torch.zeros((), dtype=torch.float32, device=cub.device)
+    one = torch.ones((), dtype=torch.float32, device=cub.device)
+    y0, y1 = p0[:, 1], p1[:, 1]
+    dy = y1 - y0
+    y0c = y0.clamp(0.0, height)
+    y1c = y1.clamp(0.0, height)
+    nzy = torch.abs(dy) > 1e-12
+    inv_dy = torch.where(nzy, 1.0 / torch.where(nzy, dy, one), zero)
+    ta = torch.where(nzy, (y0c - y0) * inv_dy, zero)
+    tb = torch.where(nzy, (y1c - y0) * inv_dy, one)
+    x0 = torch.where(y0c != y0, p0[:, 0] + ta * (p1[:, 0] - p0[:, 0]),
+                     p0[:, 0])
+    x1 = torch.where(y1c != y1, p0[:, 0] + tb * (p1[:, 0] - p0[:, 0]),
+                     p1[:, 0])
+    y0, y1 = y0c, y1c
+    alive = valid & (torch.abs(y1 - y0) + torch.abs(x1 - x0) > 1e-12)
+
+    # x clamp; the clipped-off winding of a line crossing x = lo becomes a
+    # left-edge vertical
+    lo = EDGE_EPS
+    hi = max(width - EDGE_EPS, lo + 1e-3)
+    x0c = x0.clamp(lo, hi)
+    x1c = x1.clamp(lo, hi)
+    dx = x1 - x0
+    nzx = torch.abs(dx) > 1e-12
+    inv_dx = torch.where(nzx, 1.0 / torch.where(nzx, dx, one), zero)
+    u0 = torch.where(nzx, ((x0c - x0) * inv_dx).clamp(0.0, 1.0), zero)
+    u1 = torch.where(nzx, ((x1c - x0) * inv_dx).clamp(0.0, 1.0), one)
+    ye0 = y0 + u0 * (y1 - y0)
+    ye1 = y0 + u1 * (y1 - y0)
+    outside = (torch.maximum(x0, x1) <= lo) | (torch.minimum(x0, x1) >= hi)
+    my0 = torch.where(outside | (x0c == x0), y0, ye0)
+    my1 = torch.where(outside | (x1c == x1), y1, ye1)
+    mid = torch.where(alive[:, None], torch.stack([x0c, my0, x1c, my1],
+                                                  dim=-1), 0.0)
+    crossing = alive & nzx & (torch.minimum(x0, x1) < lo) \
+        & (torch.maximum(x0, x1) > lo)
+    need_start = crossing & (x0 < x1)
+    ev_y0 = torch.where(need_start, y0, ye1)
+    ev_y1 = torch.where(need_start, ye0, y1)
+    eparts = [torch.stack([ev_y0, ev_y1, row_path.to(torch.float32)],
+                          dim=-1)]
+    if rpack is not None:
+        eparts.append(row[:, 11:17])
+    epack = torch.cat(eparts, dim=1)
+    eix, evalid, etotal = expand_by_counts(crossing.to(torch.int32),
+                                           n_edge_cap)
+    overflow_edges = (etotal > n_edge_cap).to(torch.int32)
+    erow = epack[eix.long()]
+    lof = torch.full_like(erow[:, 0], lo)
+    edge_lines = torch.where(evalid[:, None], torch.stack(
+        [lof, erow[:, 0], lof, erow[:, 1]], dim=-1), 0.0)
+    dead = torch.full_like(row_path, 2 ** 30)
+    out = {
+        "lines": mid,
+        "line_path": torch.where(alive, row_path, dead),
+        "line_valid": alive,
+        "line_real": valid,
+        "edge_lines": edge_lines,
+        "edge_path": torch.where(evalid, erow[:, 2].to(torch.int32),
+                                 torch.full_like(eix, 2 ** 30)),
+        "edge_valid": evalid,
+        "overflow": overflow_lines + 2 * overflow_edges,
+    }
+    if rpack is not None:
+        out["line_rect"] = row[:, 11:17]
+        out["edge_rect"] = erow[:, 3:9]
+    return out

@@ -12,9 +12,9 @@ plain PyTorch version (counterpart of ``vello_tpu/ops/pallas_kernels.py``).
 - K5 area coverage: ``coverage_area`` (``csrc/coverage_area.cu``), plain
   ``fine.coverage_area_plain``;
 - K6 src composite: ``composite_src`` (``csrc/composite_src.cu``), plain
-  ``fine.composite_src_plain``;
+  ``fine.composite_src_plain``, on f32 or bf16 src (render_mode "speed");
 - K7 layered draws op: ``composite_over`` (``csrc/composite_over.cu``),
-  plain ``fine.composite_over_plain``;
+  plain ``fine.composite_over_plain``, on f32 or bf16 src;
 - K8 column cumsum: ``cumsum0`` (``csrc/cumsum.cu``), plain
   ``cumsum0_plain``.
 
@@ -23,7 +23,9 @@ launches the kernel on the current stream or raises; there is no other
 fallback. The sources build with ``nvcc`` into one shared library with a
 plain C interface (``build/libvello_kernels.so``) the first time a CUDA
 tensor reaches a wrapper, so importing this module needs neither CUDA nor
-``nvcc``. ``launches`` counts the kernel launches of each wrapper.
+``nvcc``. ``launches`` counts the kernel launches of each wrapper (K6 and
+K7 count their bf16 instantiations apart, as ``composite_src_bf16`` and
+``composite_over_bf16``).
 """
 
 from __future__ import annotations
@@ -105,7 +107,8 @@ def _dda_from_q(qx0, qy0, qx1, qy1) -> dict:
 
 launches = {"flatten": 0, "expand_touches": 0, "msaa_coverage": 0,
             "composite_solid": 0, "coverage_area": 0, "composite_src": 0,
-            "composite_over": 0, "cumsum": 0}
+            "composite_src_bf16": 0, "composite_over": 0,
+            "composite_over_bf16": 0, "cumsum": 0}
 
 _lib = None
 
@@ -183,7 +186,9 @@ def _load():
             "vt_composite_solid": [P, P, P, P, P, I, P, P],
             "vt_coverage_area": [P, P, P, P, P, I, I, P, P],
             "vt_composite_src": [P, P, P, P, I, P, P],
+            "vt_composite_src_bf16": [P, P, P, P, I, P, P],
             "vt_composite_over": [P, P, P, I, P, P],
+            "vt_composite_over_bf16": [P, P, P, I, P, P],
             "vt_cumsum": [P, L, I, I, P, P, P],
         }
         for name, argtypes in sigs.items():
@@ -218,6 +223,17 @@ def _check(t, name, dtype, shape):
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _src_kernel(name: str, src) -> str:
+    """The launch counter of K6 or K7 (``name``) for these src rows, which
+    is also its C entry point without the ``vt_`` prefix: ``name`` for f32,
+    ``name + "_bf16"`` for bf16 (render_mode "speed"); any other dtype
+    raises."""
+    if src.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"src: dtype {src.dtype}, expected torch.float32 "
+                        f"or torch.bfloat16")
+    return name + "_bf16" if src.dtype == torch.bfloat16 else name
 
 
 def _check_rows_aligned(trow):
@@ -590,19 +606,21 @@ def coverage_area(trow, starts, backdrop, rule, valid, centers: bool):
 def composite_src(src, base_premul, los, his):
     """Ordered src-over per tile of the premultiplied src rows [los[g],
     his[g]) onto the premultiplied base (see ``fine.composite_src_plain``).
-    src (F, 4, 256) f32, base_premul (4,) f32, los/his (G,) i32 -> (G, 4,
-    256) f32."""
+    src (F, 4, 256) f32, or bf16 (render_mode "speed": each value widened
+    to f32, the arithmetic f32), base_premul (4,) f32, los/his (G,) i32 ->
+    (G, 4, 256) f32."""
+    kernel = _src_kernel("composite_src", src)
     if _on_cpu(src, base_premul, los, his):
         return composite_src_plain(src, base_premul, los, his)
     f = src.shape[0]
     g = los.shape[0]
-    _check(src, "src", torch.float32, (f, 4, NPX))
+    _check(src, "src", src.dtype, (f, 4, NPX))
     _check(base_premul, "base_premul", torch.float32, (4,))
     _check(los, "los", torch.int32, (g,))
     _check(his, "his", torch.int32, (g,))
     out = torch.empty((g, 4, NPX), dtype=torch.float32, device=src.device)
     if g:
-        _launch("composite_src", _load().vt_composite_src, src, base_premul,
+        _launch(kernel, getattr(_load(), f"vt_{kernel}"), src, base_premul,
                 los, his, g, out)
     return out
 
@@ -615,17 +633,19 @@ def composite_over(src, dst, los, his):
     his[g]) onto the tile's current value in ``dst``, IN PLACE (see
     ``fine.composite_over_plain``): tiles with an empty walk are neither
     read nor written. src (F, 4, 256) f32, dst (G, 4, 256) f32, los/his
-    (G,) i32. Returns dst."""
+    (G,) i32. src may be bf16 (render_mode "speed"): each value is widened
+    to f32, and dst and the arithmetic stay f32. Returns dst."""
+    kernel = _src_kernel("composite_over", src)
     if _on_cpu(src, dst, los, his):
         return composite_over_plain(src, dst, los, his)
     g = los.shape[0]
-    _check(src, "src", torch.float32, (src.shape[0], 4, NPX))
+    _check(src, "src", src.dtype, (src.shape[0], 4, NPX))
     _check(dst, "dst", torch.float32, (g, 4, NPX))
     _check(los, "los", torch.int32, (g,))
     _check(his, "his", torch.int32, (g,))
     if g:
-        _launch("composite_over", _load().vt_composite_over, src, los, his,
-                g, dst)
+        _launch(kernel, getattr(_load(), f"vt_{kernel}"), src, los, his, g,
+                dst)
     return dst
 
 

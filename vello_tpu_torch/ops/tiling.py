@@ -1,8 +1,10 @@
 """Device-side tiling: lines -> (line, tile) touches (counterpart of
-``vello_tpu/ops/tiling.py``, fused path only).
+``vello_tpu/ops/tiling.py``).
 
 Per-line counts and their scan are PyTorch; the per-touch DDA staircase,
-backdrop delta and tile clip are kernel K2 in ``ops/kernels.py``.
+backdrop delta and tile clip are kernel K2 in ``ops/kernels.py``, on the
+fused path's line pack (``make_touches_from_linepack``) and on the unfused
+path's line soup (``make_touches``) alike.
 """
 
 from __future__ import annotations
@@ -55,6 +57,63 @@ def _dda_params(lines: torch.Tensor) -> dict:
     return p
 
 
+def _expand(qrows, liverow, rectrows, tcounts, n_touch_cap: int):
+    """K2 on lines with touch counts ``tcounts``: the (16, N) pack
+    [qx0, qy0, qx1, qy1, down, offs, incl, live, rect6, 0, 0] from the
+    (5, N) rows [q, down], the (1, N) live row and the (6, N) rect rows.
+    Returns (ftile (T,) i32, pay (8, T) f32, overflow)."""
+    incl = torch.cumsum(tcounts, 0, dtype=torch.int32)
+    total = incl[-1]
+    n_all = qrows.shape[1]
+    lpack = torch.cat([
+        qrows, (incl - tcounts).to(torch.float32)[None],
+        incl.to(torch.float32)[None], liverow, rectrows,
+        torch.zeros((2, n_all), dtype=torch.float32, device=qrows.device)],
+        dim=0).contiguous()                               # (16, N)
+    pay = kernels.expand_touches(lpack, incl, n_touch_cap)
+    return (pay[6].to(torch.int32), pay,
+            (total > n_touch_cap).to(torch.int32))
+
+
+def make_touches(lines: torch.Tensor, line_path: torch.Tensor, rects: dict,
+                 n_touch_cap: int, line_rect=None, line_real=None) -> dict:
+    """Touch expansion of the unfused line soup (``flatten.flatten``):
+    lines (L, 4) f32, line_path (L,) i32 (2**30 for a dead line).
+
+    ``line_rect`` (L, 6), optional: the per-line rect fields carried along
+    the flatten expansion (else gathered here by path). ``line_real`` (L,)
+    bool, optional: the real line slots; each of them emits at least one
+    touch (a dead one a dump-tile dummy, as on the fused path, which the
+    host estimator counts). Without it a line emits its live touches only,
+    as the JAX package's XLA expansion does. Either way K2 expands the
+    lines; its plain version runs on the CPU.
+
+    Returns {"ftile" (T,) i32, "pay" (8, T) f32 [s0x, s0y, s1x, s1y,
+    y_edge, backdrop, ftile, 0], "overflow"}."""
+    p = _dda_params(lines)
+    valid_line = line_path < 2 ** 30
+    if line_rect is not None:
+        rrow = line_rect
+    else:
+        pclip = line_path.long().clamp(0, rects["tx0"].shape[0] - 1)
+        rrow = rect_pack(rects)[pclip]
+    # a vertical exactly on the path's right tile boundary carries winding
+    # outside the bbox only (path_count.wgsl: xmin >= bbox.z)
+    on_right = torch.minimum(lines[:, 0], lines[:, 2]) / TILE_W >= rrow[:, 2]
+    live = valid_line & ~on_right & (rrow[:, 4] > 0)
+    zero = torch.zeros((), dtype=torch.float32, device=lines.device)
+    counts = torch.where(live, p["count"], zero).to(torch.int32)
+    live = live & (p["count"] > 0)
+    if line_real is not None:
+        counts = torch.where(line_real, counts.clamp_min(1),
+                             torch.zeros_like(counts))
+    down = torch.where(p["is_down"], 1.0, -1.0)
+    ftile, pay, overflow = _expand(
+        torch.stack(list(p["q"]) + [down]), live.to(torch.float32)[None],
+        rrow.T, counts, n_touch_cap)
+    return {"ftile": ftile, "pay": pay, "overflow": overflow}
+
+
 def make_touches_from_linepack(linepack: torch.Tensor, total_lines,
                                n_touch_cap: int, n_edge_cap: int,
                                has_edge: bool = True) -> dict:
@@ -103,15 +162,7 @@ def make_touches_from_linepack(linepack: torch.Tensor, total_lines,
         liverow = torch.cat([e_live.to(torch.float32),
                              linepack[6]])[None]
         rectrows = torch.cat([erect.T, linepack[10:16]], dim=1)
-    incl = torch.cumsum(tcounts, 0, dtype=torch.int32)
-    total = incl[-1]
-    n_all = qrows.shape[1]
-    lpack = torch.cat([
-        qrows, (incl - tcounts).to(torch.float32)[None],
-        incl.to(torch.float32)[None], liverow, rectrows,
-        torch.zeros((2, n_all), dtype=torch.float32, device=dev)],
-        dim=0).contiguous()                               # (16, N)
-    pay = kernels.expand_touches(lpack, incl, n_touch_cap)
-    return {"ftile": pay[6].to(torch.int32), "pay": pay,
-            "overflow": (total > n_touch_cap).to(torch.int32),
+    ftile, pay, overflow = _expand(qrows, liverow, rectrows, tcounts,
+                                   n_touch_cap)
+    return {"ftile": ftile, "pay": pay, "overflow": overflow,
             "overflow_edges": overflow_edges}

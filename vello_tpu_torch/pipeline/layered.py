@@ -20,6 +20,10 @@ per-path coverage multipliers instead of push/pop ops
 Python and each op launches only its own work: a draws op with an empty
 path range launches nothing.
 
+In render_mode "speed" the src rows arrive in bf16 and K7 reads them
+through its bf16 instantiation; the coverage rows, the clip coverage of
+the pushes and the tile buffers stay f32.
+
 Two entry points share the op loop, as in the JAX package, and differ only
 in how a clipped push gets its per-tile clip coverage:
 ``render_frame_layered_scan`` (the default) looks up the clip path's one
@@ -318,6 +322,9 @@ def _apply_clip_chains(fr, skey, stride: int, pca) -> None:
                          torch.where(found[:, None], cov0[idx], 0.0), 1.0)
         cmul = cmul * ck
     fr["coverage_s"] = cov0 * cmul
+    # in render_mode "speed" the bf16 src times the f32 factors is f32
+    # (holding bf16-rounded products), as in the JAX package, and K7 then
+    # runs its f32 instantiation
     fr["src_s"] = (fr["src_s"] * cmul[:, None, :]).contiguous()
 
 

@@ -1,10 +1,12 @@
 """The end-to-end render pipeline for one frame on one device (counterpart
-of ``vello_tpu/pipeline/render.py``: the fused-geometry flat path, with
-area, centers or msaa coverage; ``pipeline/layered.py`` composites scenes
-with layers from the same fragments).
+of ``vello_tpu/pipeline/render.py``: the flat path, with area, centers or
+msaa coverage, in render_mode "quality" or "speed";
+``pipeline/layered.py`` composites scenes with layers from the same
+fragments).
 
 Stage order:
-  tile alloc -> flatten, with device strokes (K1) -> touch expansion (K2)
+  tile alloc -> flatten, with device strokes (K1; or, unfused, the tag
+  scan and decode, then the library flatten) -> touch expansion (K2)
   -> coarse sort of touches by flat tile -> segment starts, backdrop sums
   and row prefix -> [area/centers: area coverage of every fragment (K5)]
   -> live cull and (gtile, path) sort -> [msaa: msaa coverage of the live
@@ -16,10 +18,18 @@ Everything between the kernels is library PyTorch (sort, searchsorted,
 cumsum, cummax, index). Shapes are static per capacity tier and nothing
 reads back to the host inside a frame: the overflow word is the one value
 the caller reads, at the end.
+
+``lowp`` (render_mode "speed", the JAX package's bf16 fine tensors): the
+solid colors are rounded to bf16 (K4 computes with them widened, as the
+Pallas kernel does), and the non-solid src rows are formed from the bf16
+coverage and stored in bf16 (K6 and K7 read them through their bf16
+instantiations). The coverage rows that the occlusion walk and K4 read
+stay f32.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -28,6 +38,7 @@ import torch
 from ..encoding.config import TILE_H, TILE_W, Capacities
 from ..ops import fine, kernels, tiling
 from ..ops import flatten as flatten_ops
+from ..ops import pathtag
 from ..ops.segmented import segment_starts, segment_sum_from_starts
 from ..utils.profile import stage
 
@@ -43,10 +54,12 @@ class PipelineStatic:
     aa: str = "area"          # "area" | "centers" | "msaa8" | "msaa16"
     n_live: int = 0           # live-fragment cap after culling (0 = none)
     has_evenodd: bool = True  # any even-odd fill rule in the scene
-    lowp: bool = False
+    lowp: bool = False        # render_mode "speed": bf16 colors and src
     has_edge: bool = True     # geometry may cross the left viewport edge
     has_stroke: bool = False
     max_lines: int = 64       # per-segment flatten subdivision cap
+    fused_geom: bool = True   # K1 on compacted segments, else the unfused
+                              # path on the tag streams (wants_fused_geom)
 
     @property
     def width_tiles(self):
@@ -64,12 +77,57 @@ def solid_only(static: PipelineStatic) -> bool:
 
 
 def check_supported(static: PipelineStatic) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
+    """Raise ValueError for an antialiasing mode the pipeline has not."""
     if static.aa not in ("area", "centers", "msaa8", "msaa16"):
         raise ValueError(f"unknown antialiasing {static.aa!r}")
-    if static.lowp:
-        raise NotImplementedError(
-            "render_mode='speed' is not ported yet (ROADMAP item 12)")
+
+
+def wants_fused_geom() -> bool:
+    """The fused geometry path (K1 on the host-compacted segments) unless
+    ``VELLO_TPU_NO_FUSED_GEOM`` is set; else the unfused path (the tag
+    scan and decode, then the library flatten). The JAX package's rule
+    without its TPU alignment conditions, which K1 and K2 do not have."""
+    return not os.environ.get("VELLO_TPU_NO_FUSED_GEOM")
+
+
+def _geometry(bufs, static, caps, rects, W, H):
+    """Flatten and touch expansion, fused or unfused
+    (``static.fused_geom``): (touches {"ftile", "pay", "overflow"}, the
+    geometry overflow bits)."""
+    if static.fused_geom:
+        with stage("s02_flatten"):
+            ff = flatten_ops.flatten_fused(
+                bufs["seg_pts"], bufs["seg_kind"], bufs["seg_path"],
+                bufs["n_segs"], caps.n_lines, W, H, tiling.rect_pack(rects),
+                seg_hw=bufs["seg_hw"] if static.has_stroke else None,
+                seg_join=bufs["seg_join"] if static.has_stroke else None,
+                max_lines=static.max_lines)
+        with stage("s03_touch_expand"):
+            touches = tiling.make_touches_from_linepack(
+                ff["linepack"], ff["total_lines"], caps.n_touches,
+                caps.n_edges, has_edge=static.has_edge)
+        return touches, ff["overflow"] + 2 * touches["overflow_edges"]
+    with stage("s02_flatten"):
+        decoded = pathtag.decode_and_transform(
+            bufs["tags"], bufs["data"], bufs["transforms"], bufs["styles"],
+            style_hw=bufs["style_hw"] if static.has_stroke else None)
+        fl = flatten_ops.flatten(decoded, caps.n_lines, caps.n_edges, W, H,
+                                 rpack=tiling.rect_pack(rects),
+                                 has_stroke=static.has_stroke,
+                                 max_lines=static.max_lines)
+    with stage("s03_touch_expand"):
+        # the edge region first, every slot of it real: each emits at
+        # least one touch, so the touch totals match the fused path's and
+        # the host estimator's
+        lreal = torch.cat([torch.ones_like(fl["edge_valid"]),
+                           fl["line_real"]])
+        touches = tiling.make_touches(
+            torch.cat([fl["edge_lines"], fl["lines"]]),
+            torch.cat([fl["edge_path"], fl["line_path"]]), rects,
+            caps.n_touches,
+            line_rect=torch.cat([fl["edge_rect"], fl["line_rect"]]),
+            line_real=lreal)
+    return touches, fl["overflow"]
 
 
 def prepare_fragments(bufs: dict, static: PipelineStatic,
@@ -96,18 +154,7 @@ def prepare_fragments(bufs: dict, static: PipelineStatic,
     with stage("s01_tile_alloc"):
         rects = tiling.tile_alloc(bufs["path_rect"], WT_alloc, HT)
         overflow_tiles = (rects["total_tiles"] > F).to(torch.int32)
-    with stage("s02_flatten"):
-        ff = flatten_ops.flatten_fused(
-            bufs["seg_pts"], bufs["seg_kind"], bufs["seg_path"],
-            bufs["n_segs"], caps.n_lines, W, H, tiling.rect_pack(rects),
-            seg_hw=bufs["seg_hw"] if static.has_stroke else None,
-            seg_join=bufs["seg_join"] if static.has_stroke else None,
-            max_lines=static.max_lines)
-    with stage("s03_touch_expand"):
-        touches = tiling.make_touches_from_linepack(
-            ff["linepack"], ff["total_lines"], caps.n_touches, caps.n_edges,
-            has_edge=static.has_edge)
-        geom_overflow = ff["overflow"] + 2 * touches["overflow_edges"]
+    touches, geom_overflow = _geometry(bufs, static, caps, rects, W, H)
 
     with stage("s04_coarse_sort"):
         # touches by flat tile (order within a tile is immaterial: winding
@@ -202,7 +249,15 @@ def prepare_fragments(bufs: dict, static: PipelineStatic,
                # opaque solid fragments drive the occlusion walk
                "opaque_s": (prow[:, 0] == 0.0) & (prow[:, 4] >= 1.0 - 1e-6)}
         if solid_only(static) and not keep_clip_paths:
-            out["col_s"] = prow[:, 1:5].contiguous()
+            col = prow[:, 1:5]
+            if static.lowp:
+                # the JAX package's bf16 colors, widened to the f32 values
+                # its K4 computes with; opacity is read from the rounded
+                # alpha there (0.999 rounds to 1.0 and occludes)
+                col = col.to(torch.bfloat16).to(torch.float32)
+                out["opaque_s"] = (prow[:, 0] == 0.0) & (col[:, 3]
+                                                          >= 1.0 - 1e-6)
+            out["col_s"] = col.contiguous()
             return out
         # paint evaluated in sorted order: only per-fragment scalars ride
         # the permutation, and all the paint fields ride one row gather
@@ -213,13 +268,20 @@ def prepare_fragments(bufs: dict, static: PipelineStatic,
             prow[:, 0].to(torch.int32), prow[:, 1:5], prow[:, 5:17],
             prow[:, 17:23], prow[:, 23:31], prow[:, 31:39], bufs["ramps"],
             bufs["atlas"], frozenset(static.kinds_present))
+        if static.lowp:
+            # the paint times the bf16-rounded coverage, in f32, then
+            # stored in bf16 (the JAX package's f32 x bf16 promotion)
+            coverage_s = coverage_s.to(torch.bfloat16).to(torch.float32)
         if keep_clip_paths:
             # clip rows composite as src = 0: zero their coverage in the
             # product (paint * 0 is the 0 the JAX package writes after it)
             is_clip_s = prow[:, 39] != 0
             out["opaque_s"] = out["opaque_s"] & ~is_clip_s
             coverage_s = torch.where(is_clip_s[:, None], 0.0, coverage_s)
-        out["src_s"] = (src * coverage_s[:, None, :]).contiguous()
+        src = src * coverage_s[:, None, :]
+        if static.lowp:
+            src = src.to(torch.bfloat16)
+        out["src_s"] = src.contiguous()
     return out
 
 
