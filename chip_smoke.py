@@ -7,7 +7,7 @@ Phases (any failure exits non-zero):
   2. build: compile the port's CUDA kernels from vello_tpu_torch/csrc (one
      nvcc per source, all at once), and print what ptxas reports for each
      kernel: registers, shared memory, spills;
-  3. the eleven frame paths at full size, 1600x1600 through
+  3. the fourteen frame paths at full size, 1600x1600 through
      vello_tpu_torch.Renderer(device="cuda").render_u8, each with the
      launch counts set to 0 just before it and read just after:
      a. msaa16: filled_mmark-30k (kernels K1 flatten, K2 touch expansion,
@@ -41,13 +41,26 @@ Phases (any failure exits non-zero):
         not launched);
      k. stroked_unfused: mmark-30k in msaa16, unfused (device strokes in
         the library flatten; K2, K3, K4; K1 not launched);
+     l. centers: filled_mmark-30k in "centers" antialiasing, the area
+        coverage of each pixel thresholded at 0.5 (K1, K2, K5 with its
+        centers epilogue, K4);
+     m. msaa16_supersampled: the same scene in msaa16 with
+        VELLO_TPU_SUPERSAMPLE_MSAA=1: the scene scaled by 4, a 6400x6400
+        centers frame (K1, K2, K5 centers, K4), then the 4x4 box resolve
+        and the u8 conversion on the card; its tier, Renderer.profile and
+        kernels are the centers frame's;
+     n. msaa8_supersampled: the same in msaa8, a 4800x4800 centers frame
+        and a 3x3 resolve;
      each with overflow 0, no retry, the host's tier and one launch of each
      of its kernels (K7: as many as the plan's non-empty draws ops; K8: as
      many as its clipped pushes); first-frame and warm per-frame times, peak
      memory; Renderer.profile's device ms per stage, held to cover all but
      5% of the device time with each kernel under its stage (K1 under
      s02_flatten, K2 under s03_touch_expand, ...), and each kernel's
-     in-frame time per launch; the stage ranges' host cost;
+     in-frame time per launch; the stage ranges' host cost; then the
+     supersampled msaa16 frame (f32) within SAMPLE_MASK_MEAN mean abs of
+     the sample-mask msaa16 frame of the same scene, and its render_u8
+     bytes equal to utils.png.to_rgba8 of its f32 frame;
   4. each kernel against its plain PyTorch version on the inputs of the
      path named for it in KERNELS (K1 twice: on the fill rows of the msaa16
      frame and on the stroke rows of the stroked frame; K2 and K3 twice: on
@@ -58,12 +71,16 @@ Phases (any failure exits non-zero):
      frame's largest draws op, each equal to its plain version, its bytes
      bound counting src at 2 bytes; K8 twice: on the unrolled frame's largest clipped
      push, and on a seeded (n_live, 256) input at the layered cell's live
-     tier, uniform and in multiples of 1/16), with times for both (CUDA
+     tier, uniform and in multiples of 1/16; K1, K2, K5 and K4 once more on
+     each of the three centers paths' inputs, the <kernel>_<path> entries,
+     K5 with its centers threshold and bit-equal), with times for both (CUDA
      events, and the kernel's profiled time), the least time the card
      could take and, for K8, torch.cumsum's time; the paint evaluation's
      time on the gradient frame's inputs;
-  5. 512x512 frames of all eleven paths' scenes (speed and unfused
-     included), and of a scene with every
+  5. 512x512 frames of all fourteen paths' scenes (speed, unfused and
+     centers included; the supersampled paths on filled_mmark(1, 128.) at
+     128x128, also held within 2.5e-3 mean abs of the port's oracle), and
+     of a scene with every
      kind of layer (clip chain, pushed clip, luminance and alpha masks,
      multiply, blur filter, unbalanced push), rendered on the GPU and with
      the port on the CPU, within 1 u8 level;
@@ -104,7 +121,10 @@ Phases (any failure exits non-zero):
      bytes are printed).
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels, and the one before that the card. ``--profile DIR`` also
-writes a torch.profiler table of three warm frames of each path to DIR.
+writes a torch.profiler table of three warm frames of each path to DIR,
+and prints phase 3's per-path numbers once more as one JSON line
+{"phase3": {path: {...}}} before the card's line (and to
+DIR/phase3_summary.json), so that they stay in the output's tail.
 Imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -199,6 +219,30 @@ KERNELS = {
                             "vello_tpu/ops/pallas_kernels.py:496",
                             "layered_unrolled"),
 }
+# the centers paths' four kernels, each held on its path's inputs: entry
+# <kernel>_<path> (K5 with its centers threshold)
+CENTERS_PATHS = ("centers", "msaa16_supersampled", "msaa8_supersampled")
+for _path in CENTERS_PATHS:
+    KERNELS.update({
+        f"flatten_{_path}": ("flatten", "flatten_lines",
+                             "flatten_lines_plain",
+                             "vello_tpu_torch/csrc/flatten.cu",
+                             "vello_tpu/ops/pallas_kernels.py:711", _path),
+        f"expand_touches_{_path}": ("expand_touches", "expand_touches",
+                                    "expand_touches_plain",
+                                    "vello_tpu_torch/csrc/expand_touches.cu",
+                                    "vello_tpu/ops/pallas_kernels.py:911",
+                                    _path),
+        f"coverage_area_{_path}": ("coverage_area", "coverage_area",
+                                   "coverage_area_plain",
+                                   "vello_tpu_torch/csrc/coverage_area.cu",
+                                   "vello_tpu/ops/pallas_kernels.py:84",
+                                   _path),
+        f"composite_solid_{_path}": ("composite_solid", "composite_solid",
+                                     "composite_solid_plain",
+                                     "vello_tpu_torch/csrc/composite_solid.cu",
+                                     "vello_tpu/ops/pallas_kernels.py:1303",
+                                     _path)})
 
 # launch counter -> (the name its CUDA kernels carry in a profiler trace,
 # the stage range of the frame that launches it)
@@ -220,7 +264,10 @@ KERNEL_STAGES = {
 
 # frame path -> (scene, antialiasing, the launch counters of its kernels);
 # a path named *_speed renders in render_mode "speed", one named *_unfused
-# with VELLO_TPU_NO_FUSED_GEOM=1 (``path_env``)
+# with VELLO_TPU_NO_FUSED_GEOM=1, one named *_supersampled with
+# VELLO_TPU_SUPERSAMPLE_MSAA=1 (``path_env``): its frame is the "centers"
+# frame of the scene scaled by k (4 for msaa16, 3 for msaa8) at k*SIZE
+# square, then the k x k box resolve
 PATHS = {
     "msaa16": ("filled_mmark", "msaa16",
                ("flatten", "expand_touches", "msaa_coverage",
@@ -255,9 +302,28 @@ PATHS = {
     "stroked_unfused": ("mmark", "msaa16",
                         ("expand_touches", "msaa_coverage",
                          "composite_solid")),
+    "centers": ("filled_mmark", "centers",
+                ("flatten", "expand_touches", "coverage_area",
+                 "composite_solid")),
+    "msaa16_supersampled": ("filled_mmark", "msaa16",
+                            ("flatten", "expand_touches", "coverage_area",
+                             "composite_solid")),
+    "msaa8_supersampled": ("filled_mmark", "msaa8",
+                           ("flatten", "expand_touches", "coverage_area",
+                            "composite_solid")),
 }
 UNROLLED = "VELLO_TPU_UNROLLED_LAYERS"
 NO_FUSED_GEOM = "VELLO_TPU_NO_FUSED_GEOM"
+SUPERSAMPLE = "VELLO_TPU_SUPERSAMPLE_MSAA"
+# the supersampled msaa16 frame against the sample-mask msaa16 frame of the
+# same scene, f32 mean abs (tests/test_torch_supersample.py: 0.0041 and
+# 0.0046 at 128^2)
+SAMPLE_MASK_MEAN = 1e-2
+# phase 5's supersampled frames, (complexity, size): filled_mmark(1, 128.),
+# also held to the port's oracle, which composites every path over the
+# whole (k*size)^2 frame: on the CPU filled_mmark(1, 128.) takes it 8 and
+# 14 s (msaa8, msaa16), filled_mmark(1, 256.) 39 and 83 s
+SUPERSAMPLED_CHECK = (1, 128)
 
 # phase 6: the ported reference scenes at the sizes of
 # tests/test_reference_goldens.py (SIZES), with its bars: the frame within
@@ -426,14 +492,18 @@ def render_params(RenderParams, path: str, size: int):
 
 @contextlib.contextmanager
 def path_env(path: str):
-    """VELLO_TPU_UNROLLED_LAYERS=1 for the layered_unrolled path and
-    VELLO_TPU_NO_FUSED_GEOM=1 for a *_unfused path, both unset for every
-    other; restored after."""
-    old = {k: os.environ.pop(k, None) for k in (UNROLLED, NO_FUSED_GEOM)}
+    """VELLO_TPU_UNROLLED_LAYERS=1 for the layered_unrolled path,
+    VELLO_TPU_NO_FUSED_GEOM=1 for a *_unfused path and
+    VELLO_TPU_SUPERSAMPLE_MSAA=1 for a *_supersampled path, each unset for
+    every other; restored after."""
+    old = {k: os.environ.pop(k, None)
+           for k in (UNROLLED, NO_FUSED_GEOM, SUPERSAMPLE)}
     if path == "layered_unrolled":
         os.environ[UNROLLED] = "1"
     if path.endswith("_unfused"):
         os.environ[NO_FUSED_GEOM] = "1"
+    if path.endswith("_supersampled"):
+        os.environ[SUPERSAMPLE] = "1"
     try:
         yield
     finally:
@@ -766,7 +836,8 @@ def bound(name, args, out):
         walked = int((his - los).clamp_min(0).sum())
         nbytes = (_nbytes(*args[-3:], out) + walked
                   * sum(r[0].numel() * r.element_size() for r in rows))
-        ops = walked * 256 * (OPS_PER_COMPOSITE if name == "composite_solid"
+        ops = walked * 256 * (OPS_PER_COMPOSITE
+                              if name.startswith("composite_solid")
                               else OPS_PER_SRC_COMPOSITE)
     elif name == "coverage_area_raw":
         # every fragment's sums, no backdrop, fill rule or threshold
@@ -801,7 +872,9 @@ def compare(name, got, ref):
     layered draws op and K5's raw entry exact (the same f32 ops in the
     same order, no contraction), the other composites atol 2e-5, area
     coverage atol 1e-6
-    (the same op order: expected 0); K8 exact on msaa clip coverage
+    (the same op order: expected 0), and with its centers threshold (the
+    coverage_area_<path> entries) bit-equal, since a residue would flip a
+    sample; K8 exact on msaa clip coverage
     (multiples of 1/16: every prefix is exact) and within 2e-6 of the
     largest prefix on uniform values (both sum in f64 and round once, in
     different orders); the bf16 instantiations of K6 and K7 exact (each
@@ -818,6 +891,10 @@ def compare(name, got, ref):
     elif name == "coverage_area":
         if err > 1e-6:
             fail(f"coverage_area: max abs err {err} > 1e-6")
+    elif name.startswith("coverage_area"):
+        if not np.array_equal(got, ref):
+            fail(f"{name}: differs from the plain version (max abs err "
+                 f"{err}; expected bit-equal)")
     elif name == "cumsum":
         if err != 0.0:
             fail(f"cumsum: max abs err {err} on msaa clip coverage "
@@ -838,13 +915,24 @@ def compare(name, got, ref):
 def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
              profile):
     """Drive one frame path at full size; returns (frame thunk, launch
-    counts of its first frame, its u8 image, its profile)."""
+    counts of its first frame, its u8 image, its profile, its kernels'
+    in-frame ms per launch). A *_supersampled path's host tier and
+    Renderer.profile are those of its centers frame, and its frame thunk
+    runs the centers frame, the box resolve and the u8 conversion."""
+    from vello_tpu_torch.models.renderer import (box_resolve, rgba8_device,
+                                                 supersample_factor,
+                                                 supersampled_scene)
     from vello_tpu_torch.pipeline import layered
     from vello_tpu_torch.utils.profile import profile_stages
     scene_name, aa, used = PATHS[path]
     params = render_params(RenderParams, path, SIZE)
-    rs = resolve(scene.encoding, params)
-    caps = rs.capacities(params)
+    supersampled = path.endswith("_supersampled")
+    # the frame the device renders: for a supersampled path, its centers
+    # frame at k*SIZE square
+    frame_scene, frame_params = ((supersampled_scene(scene, params))
+                                 if supersampled else (scene, params))
+    rs = resolve(frame_scene.encoding, frame_params)
+    caps = rs.capacities(frame_params)
     expected = {name: int(name in used) for name in kernels.launches}
     if path.startswith("layered"):
         # K7 (f32 or bf16 src) launches once per draws op with a non-empty
@@ -870,7 +958,9 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
                                       != layered.OP_NOP).sum())
                             if path.startswith("layered") else 11)
     print(f"[{path}] first_frame_s {first_s:.4f} tier {prof['tier']} retries "
-          f"{prof['retries']} n_live {prof['n_live']} launches {launches}")
+          f"{prof['retries']} n_live {prof['n_live']} launches {launches}"
+          + (f" (centers frame {frame_params.width}x{frame_params.height},"
+             f" host estimates {prof['est']})" if supersampled else ""))
     want = dict(zip(prof["tier"], caps.key()))
     if prof["retries"] != 0 or prof["tier"] != want:
         fail(f"[{path}] tier {prof['tier']} / retries {prof['retries']}: "
@@ -885,6 +975,10 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
         fail(f"[{path}] launches {launches} in one frame, expected "
              f"{expected}")
     frame = r.frame_thunk()
+    if supersampled:
+        def frame(thunk=frame, k=supersample_factor(params)):
+            img, overflow = thunk()
+            return rgba8_device(box_resolve(img, SIZE, SIZE, k)), overflow
     _, overflow = frame()
     if int(overflow) != 0:
         fail(f"[{path}] warm frame overflow {int(overflow)}")
@@ -895,14 +989,15 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     warm = statistics.median(times)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"[{path}] warm_ms_per_frame median {warm:.3f} "
           f"min {min(times):.3f} max {max(times):.3f} over {WARM_FRAMES} "
-          f"frames; peak_mem_gb "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}")
-    # the per-stage device time of three traced warm frames; the frame it
-    # renders first replaces the renderer's frame thunk, not ``frame``
+          f"frames; peak_mem_gb {peak_gb:.2f}")
+    # the per-stage device time of three traced warm frames (of the
+    # centers frame, for a supersampled path); the frame it renders first
+    # replaces the renderer's frame thunk, not ``frame``
     with path_env(path):
-        stages = r.profile(scene, params)
+        stages = r.profile(frame_scene, frame_params)
     in_frame = check_stages(path, stages, r.last_profile["kernels"], used,
                             launches)
     print(f"[{path}] Renderer.profile device ms per frame: "
@@ -914,6 +1009,13 @@ def run_path(path, kernels, Renderer, RenderParams, resolve, scene,
           f"{device_ms / warm:.3f} (Renderer.profile's f32 frame "
           f"{stages['_total']:.4f}); in-frame kernel ms per launch "
           + ", ".join(f"{k} {v:.4f}" for k, v in in_frame.items()))
+    prof["summary"] = {
+        "first_frame_s": first_s, "tier": prof["tier"],
+        "retries": prof["retries"], "n_live": prof["n_live"],
+        "launches": {k: v for k, v in launches.items() if v},
+        "warm_ms": [warm, min(times), max(times)], "peak_gb": peak_gb,
+        "device_ms": device_ms, "busy": device_ms / warm,
+        "profile_stages_ms": stages, "in_frame_ms_per_launch": in_frame}
     if profile:
         from torch.profiler import ProfilerActivity, profile as tprofile
         os.makedirs(profile, exist_ok=True)
@@ -1405,7 +1507,29 @@ def main():
           f"{statistics.median(times):.3f} min {min(times):.3f} max "
           f"{max(times):.3f} over {WARM_FRAMES} frames")
     del r_scan, scan_frame
-    del scenes, images, scan_img
+    # the supersampled msaa16 frame (f32) against the sample-mask msaa16
+    # frame of the same scene, and its render_u8 bytes against
+    # utils.png.to_rgba8 of its own f32 frame
+    from vello_tpu_torch.utils.png import to_rgba8
+    p16 = render_params(RenderParams, "msaa16", SIZE)
+    with path_env("msaa16"):
+        mask_img = Renderer(device="cuda").render(scenes["filled_mmark"], p16)
+    with path_env("msaa16_supersampled"):
+        sup_img = Renderer(device="cuda").render(scenes["filled_mmark"], p16)
+    d = np.abs(sup_img - mask_img)
+    u8_differ = int((to_rgba8(sup_img)
+                     != images["msaa16_supersampled"]).sum())
+    print(f"[msaa16_supersampled] against the sample-mask msaa16 frame: "
+          f"mean abs {float(d.mean())} max abs {float(d.max())} (bar: mean "
+          f"< {SAMPLE_MASK_MEAN}); render_u8 bytes differing from "
+          f"to_rgba8 of the f32 frame: {u8_differ}")
+    if not (np.isfinite(sup_img).all() and d.mean() < SAMPLE_MASK_MEAN):
+        fail(f"msaa16_supersampled: mean abs {float(d.mean())} from the "
+             f"sample-mask frame, bar {SAMPLE_MASK_MEAN}")
+    if u8_differ:
+        fail(f"msaa16_supersampled: render_u8 differs from to_rgba8 of the "
+             f"f32 frame in {u8_differ} bytes")
+    del scenes, images, scan_img, mask_img, sup_img, d
 
     # 4. each kernel against its plain version, on its path's inputs
     captured = {}
@@ -1431,6 +1555,10 @@ def main():
                 captured[name] = calls[spec[1]]
     if captured["flatten_stroke_rows"][0][0].shape[1] != 21:
         fail("the stroked frame gave K1 no stroke rows")
+    for path in CENTERS_PATHS:
+        if captured[f"coverage_area_{path}"][0][5] is not True:
+            fail(f"the {path} frame did not run K5 with its centers "
+                 f"threshold")
     for name in ("composite_src_bf16", "composite_over_bf16"):
         if captured[name][0][0].dtype != torch.bfloat16:
             fail(f"{name}: the speed frame gave it "
@@ -1503,27 +1631,48 @@ def main():
           f"fragments (gradient_image frame)")
     del frames, captured, pargs, pkw
 
-    # 5. smaller frames: GPU kernels against the port's CPU plain path
-    checks = [(path, scene_name, aa, make_scene(
-        test_scenes, scene_name, 1 if scene_name == "layered_mmark" else 4,
-        512.0)) for path, (scene_name, aa, _) in PATHS.items()]
+    # 5. smaller frames: GPU kernels against the port's CPU plain path;
+    # the supersampled paths at SUPERSAMPLED_CHECK, also held to the port's
+    # oracle
+    from vello_tpu_torch.oracle import OracleRenderer
+
+    def check_shape(path, scene_name):
+        """(complexity, size) of a path's phase 5 frame."""
+        if path.endswith("_supersampled"):
+            return SUPERSAMPLED_CHECK
+        return (1 if scene_name == "layered_mmark" else 4), 512
+    checks = []
+    for path, (scene_name, aa, _) in PATHS.items():
+        depth, n = check_shape(path, scene_name)
+        checks.append((path, scene_name, aa, make_scene(
+            test_scenes, scene_name, depth, float(n))))
     checks.append(("layer_features", "layer_features", "msaa16",
                    layer_features(512.0)))
     for path, scene_name, aa, small in checks:
+        n = (check_shape(path, scene_name)[1] if path in PATHS else 512)
         sp = (RenderParams(512, 512, base_color=BASE, antialiasing=aa)
               if path == "layer_features"
-              else render_params(RenderParams, path, 512))
+              else render_params(RenderParams, path, n))
         with path_env(path):
             gpu_img = Renderer(device="cuda").render_u8(small, sp)
             cpu_img = Renderer(device="cpu").render_u8(small, sp)
+            if path.endswith("_supersampled"):
+                gpu_f32 = Renderer(device="cuda").render(small, sp)
+                omean = float(np.abs(gpu_f32 - OracleRenderer().render(
+                    small, sp)).mean())
         diff = np.abs(gpu_img.astype(np.int16) - cpu_img.astype(np.int16))
-        print(f"image_check 512x512 {path} ({scene_name} {aa} "
+        print(f"image_check {n}x{n} {path} ({scene_name} {aa} "
               f"{sp.render_mode}): max diff "
               f"{int(diff.max())}, identical "
-              f"{float((diff == 0).mean()):.6f}")
+              f"{float((diff == 0).mean()):.6f}"
+              + (f"; oracle mean abs {omean} (bar {ORACLE_MEAN_TOL})"
+                 if path.endswith("_supersampled") else ""))
         if diff.max() > 1:
             fail(f"{path}: GPU and CPU images differ by {int(diff.max())} "
                  f"levels")
+        if path.endswith("_supersampled") and not omean < ORACLE_MEAN_TOL:
+            fail(f"{path}: {n}x{n} frame {omean} mean abs from the port's "
+                 f"oracle, bar {ORACLE_MEAN_TOL}")
 
     # 6. the device probe and the reference corpus
     t0 = time.perf_counter()
@@ -1539,6 +1688,14 @@ def main():
     results.append(run_mesh(Renderer, RenderParams, test_scenes))
     print(f"phase 7: the mesh in {time.perf_counter() - t0:.3f} s")
 
+    if args.profile:
+        # phase 3's per-path numbers once more, after the profiler tables,
+        # so that they stay in the output's tail
+        summary = {p: prof["summary"] for p, prof in profiles.items()}
+        with open(os.path.join(args.profile, "phase3_summary.json"),
+                  "w") as f:
+            json.dump(summary, f)
+        print(json.dumps({"phase3": summary}))
     print(card)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

@@ -674,3 +674,34 @@ def test_gpu_unfused_frames_equal_cpu_frames(cuda, monkeypatch, scene, aa):
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     np.testing.assert_array_equal(gpu, cpu)
     assert np.abs(gpu.astype(np.int16) - fused.astype(np.int16)).max() <= 1
+
+
+def test_gpu_supersampled_frame_equals_cpu_frame(cuda, monkeypatch):
+    """VELLO_TPU_SUPERSAMPLE_MSAA on the card: msaa16 as a 512x512 centers
+    frame of the scene scaled by 4 (K1, K2, K5 with its centers threshold,
+    K4), resolved 4x4 on the device. The f32 frame is within 1e-6 of the
+    CPU's (K5 is bit-equal to its plain version, so every sample
+    thresholds the same way; the box mean may sum in another order), the
+    u8 frame within a level, and the centers frame stays behind
+    frame_thunk."""
+    monkeypatch.setenv("VELLO_TPU_SUPERSAMPLE_MSAA", "1")
+    params = RenderParams(128, 128, base_color=(0.1, 0.1, 0.1, 1.0),
+                          antialiasing="msaa16")
+    scene = filled_mmark(2, 128.0)
+    r = Renderer(device=cuda)
+    kernels.reset_launches()
+    gpu = r.render(scene, params)
+    counts = dict(kernels.launches)
+    used = {"flatten", "expand_touches", "coverage_area", "composite_solid"}
+    assert counts == {k: int(k in used) for k in counts}, counts
+    assert r.last_profile["retries"] == 0
+    img, overflow = r.frame_thunk()()
+    assert int(overflow) == 0 and tuple(img.shape) == (512, 512, 4)
+    cpu_r = Renderer(device="cpu")
+    cpu = cpu_r.render(scene, params)
+    assert r.last_profile["tier"] == cpu_r.last_profile["tier"]
+    np.testing.assert_allclose(gpu, cpu, rtol=0, atol=1e-6)
+    # a box mean an ulp apart can round a byte the other way
+    diff = np.abs(r.render_u8(scene, params).astype(np.int16)
+                  - cpu_r.render_u8(scene, params).astype(np.int16))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999

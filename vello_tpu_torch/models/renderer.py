@@ -17,6 +17,7 @@ import torch
 
 from ..encoding.config import Capacities, RenderParams, next_size
 from ..encoding.resolve import PAINT_IMAGE, ResolvedScene, resolve
+from ..kurbo import Affine
 from ..pipeline import layered
 from ..pipeline.render import (PipelineStatic, get_pipeline,
                                wants_fused_geom)
@@ -164,6 +165,41 @@ def to_torch(bufs_np: dict, device) -> dict:
             for k, v in bufs_np.items()}
 
 
+def rgba8_device(img: torch.Tensor) -> torch.Tensor:
+    """Premultiplied f32 (H, W, 4) -> straight-alpha RGBA8 on the image's
+    device: the ops of ``utils.png.to_rgba8`` in its order, so the bytes
+    equal its result on the same f32 image (rgb 0 where alpha quantizes
+    to 0)."""
+    a = img[..., 3:4].clamp(0.0, 1.0)
+    vis = a >= 1.0 / 510.0
+    safe = torch.where(vis, a, 1.0)
+    rgb = torch.where(vis, (img[..., :3] / safe).clamp(0.0, 1.0), 0.0)
+    return (torch.cat([rgb, a], dim=-1) * 255.0 + 0.5).to(torch.uint8)
+
+
+def supersample_factor(params: RenderParams) -> int:
+    """k of the supersampled msaa path: 3 for msaa8, 4 for msaa16."""
+    return 3 if params.antialiasing == "msaa8" else 4
+
+
+def supersampled_scene(scene: Scene, params: RenderParams):
+    """(the scene scaled by k, its "centers" RenderParams at k*W x k*H):
+    the frame the supersampled msaa path renders."""
+    k = supersample_factor(params)
+    up = Scene()
+    up.append(scene, Affine.scale(float(k)))
+    return up, RenderParams(params.width * k, params.height * k,
+                            params.base_color, "centers")
+
+
+def box_resolve(img: torch.Tensor, height: int, width: int,
+                k: int) -> torch.Tensor:
+    """The k x k box resolve of a (k*height, k*width, 4) supersampled frame
+    to (height, width, 4), on its device."""
+    img = img[:height * k, :width * k]
+    return img.reshape(height, k, width, k, 4).mean(dim=(1, 3))
+
+
 class Renderer:
     """Device renderer. ``render`` -> (H, W, 4) premultiplied f32 numpy;
     ``render_u8`` -> straight-alpha RGBA8.
@@ -200,8 +236,10 @@ class Renderer:
         each kernel's time under its stage (``utils.profile``), plus
         "_total" and "_other". Returns {} when there is no device trace
         (a CPU renderer). Sets ``last_profile`` to {"stages", "tier"}, as
-        the JAX Renderer does, and "kernels": {(stage, kernel name): ms}."""
-        self.render(scene, params)
+        the JAX Renderer does, and "kernels": {(stage, kernel name): ms}.
+        As the JAX method, it renders ``params`` as given, whatever
+        VELLO_TPU_SUPERSAMPLE_MSAA says."""
+        self.render_resolved(resolve(scene.encoding, params), params)
         tier = self.last_profile["tier"]
         stages, split, _ = (profile_stages(self._frame, detail=True)
                             if self.device.type == "cuda" else ({}, {}, {}))
@@ -209,22 +247,52 @@ class Renderer:
                              "kernels": split}
         return stages
 
+    def _use_supersample(self, params: RenderParams) -> bool:
+        """msaa8/msaa16 run through the sample-mask pipeline (per-sample
+        winding at the D3D standard positions, K3);
+        VELLO_TPU_SUPERSAMPLE_MSAA=1, read at call time, selects k*k
+        supersampling instead. 'centers' is the supersampled frame's own
+        mode and renders directly."""
+        return (params.antialiasing in ("msaa8", "msaa16")
+                and bool(os.environ.get("VELLO_TPU_SUPERSAMPLE_MSAA")))
+
     def render(self, scene: Scene, params: RenderParams) -> np.ndarray:
-        self._check_params(params)
+        if self._use_supersample(params):
+            return self._render_supersampled(scene, params)
         return self.render_resolved(resolve(scene.encoding, params), params)
 
     def render_u8(self, scene: Scene, params: RenderParams) -> np.ndarray:
-        self._check_params(params)
+        if self._use_supersample(params):
+            return self._render_supersampled(scene, params, out="rgba8")
         return self.render_resolved(resolve(scene.encoding, params), params,
                                     out="rgba8")
 
-    @staticmethod
-    def _check_params(params: RenderParams) -> None:
-        if (params.antialiasing in ("msaa8", "msaa16")
-                and os.environ.get("VELLO_TPU_SUPERSAMPLE_MSAA")):
-            raise NotImplementedError(
-                "the supersampled msaa path (VELLO_TPU_SUPERSAMPLE_MSAA) is "
-                "not ported (ROADMAP: not ported unless a need appears)")
+    def _render_supersampled(self, scene: Scene, params: RenderParams,
+                             out: str = "f32") -> np.ndarray:
+        """msaa8/msaa16 as 3x/4x supersampling: the encoding scaled by k,
+        a "centers" frame at k*W x k*H (each pixel's area coverage
+        thresholded at 0.5, so a path covers a pixel wholly or not at all
+        and the frame composites per sample), then a k x k box resolve.
+        k*k is at least the mode's sample count.
+
+        Two differences of form from the JAX package's method, not of
+        function: the crop and the k x k mean run on the device and only
+        the (H, W, 4) result is read back (the JAX package reads back the
+        k*W x k*H f32 frame and resolves it in numpy: 655 MB at 6400^2);
+        and ``out="rgba8"`` applies ``utils.png.to_rgba8``'s rounding on
+        the device to the resolved frame (``rgba8_device``), where the
+        pipeline's u8 output would convert before the resolve.
+        ``frame_thunk`` then re-runs the centers frame, and
+        ``last_profile`` holds its tier and retries."""
+        up, big = supersampled_scene(scene, params)
+        rs = resolve(up.encoding, big)
+        t_start = time.time()
+        img = self._render_device(rs, big)
+        img = box_resolve(img, params.height, params.width,
+                          supersample_factor(params))
+        if out == "rgba8":
+            img = rgba8_device(img)
+        return self._read_back(img, t_start)
 
     def _device_bufs(self, rs: ResolvedScene, caps: Capacities,
                      params: RenderParams, slim: bool, paint8: bool) -> dict:
@@ -241,6 +309,21 @@ class Renderer:
     def render_resolved(self, rs: ResolvedScene, params: RenderParams,
                         out: str = "f32") -> np.ndarray:
         t_start = time.time()
+        return self._read_back(self._render_device(rs, params, out), t_start)
+
+    def _read_back(self, img: torch.Tensor, t_start: float) -> np.ndarray:
+        """The image to the host; ``last_profile`` gets the wall time up
+        to the readback and the readback's."""
+        t_done = time.time()
+        out = img.cpu().numpy()
+        self.last_profile.update(wall_s=t_done - t_start,
+                                 readback_s=time.time() - t_done)
+        return out
+
+    def _render_device(self, rs: ResolvedScene, params: RenderParams,
+                       out: str = "f32") -> torch.Tensor:
+        """The frame on the device, retried until its overflow word is 0:
+        the image tensor; sets ``last_profile`` and the frame thunk."""
         caps = rs.capacities(params)
         has_layers = any(k in (3, 4) for k in rs.draw_kind)
         if has_layers:
@@ -274,11 +357,7 @@ class Renderer:
             img, overflow_t = frame()
             overflow = int(overflow_t)           # the frame's one readback
             if overflow == 0:
-                t_done = time.time()
-                img = img.cpu().numpy()
                 self.last_profile = {
-                    "wall_s": t_done - t_start,
-                    "readback_s": time.time() - t_done,
                     "tier": dict(zip(_TIER_KEYS, caps.key())),
                     "retries": attempt,
                     "layered": has_layers,
