@@ -118,12 +118,25 @@ Phases (any failure exits non-zero):
      stages its all-reduces through the host); each stitched frame within
      1 u8 level of Renderer(device="cuda")'s frame of the scene on the
      unfused geometry (msaa: byte-identical expected; the differing
-     bytes are printed).
+     bytes are printed);
+  8. the port's bench, ``python -m vello_tpu_torch.bench`` at its defaults
+     (bench.py's: filled_mmark-30k at 1600x1600 in msaa16; batched B=4;
+     area_quality and msaa16_speed; stroked_mmark, gradient_image_mmark
+     and layered_mmark; the forced nvcc build) in a subprocess with a
+     timeout of its own (BENCH_TIMEOUT), whose JSON line is printed again
+     before the card's line. It fails on a non-zero exit, no line, an
+     "error" metric, an "error: ..." alt entry, a scene's error or retry,
+     a missing device_ms beside a frame_ms, a missing build_s, or launches
+     that differ from phase 3's for the matching path (BENCH_PATHS; the
+     batched entry's: B times the msaa16 path's). Its frame_ms beside
+     phase 3's warm median is printed, not held: the frames are
+     host-bound.
 The last line is {"ok": true, "device": {...}}; the line before it lists
-the kernels, and the one before that the card. ``--profile DIR`` also
-writes a torch.profiler table of three warm frames of each path to DIR,
-and prints phase 3's per-path numbers once more as one JSON line
-{"phase3": {path: {...}}} before the card's line (and to
+the kernels, the one before that the card, and the one before that the
+bench's line. ``--profile DIR`` also writes a torch.profiler table of
+three warm frames of each path to DIR, and prints phase 3's per-path
+numbers once more as one JSON line {"phase3": {path: {...}}} before the
+bench's line (and to
 DIR/phase3_summary.json), so that they stay in the output's tail.
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -134,6 +147,7 @@ import argparse
 import contextlib
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1201,6 +1215,77 @@ MESH_WARM_FRAMES = 5
 MESH_TIMEOUT = 600.0
 
 
+# phase 8: the port's bench at its defaults. Bench entry -> the phase 3
+# path whose launch counts it must repeat.
+BENCH_PATHS = {"headline": "msaa16", "area_quality": "area",
+               "msaa16_speed": "msaa16_speed", "stroked_mmark": "stroked",
+               "gradient_image_mmark": "gradient_image",
+               "layered_mmark": "layered"}
+BENCH_TIMEOUT = 600.0
+
+
+def run_bench(path_launches, profiles):
+    """Phase 8: ``python -m vello_tpu_torch.bench`` with bench.py's
+    defaults (no BENCH_* or path variable of this process passed on), in
+    its own session so that a timeout stops it and its nvcc processes.
+    Holds its line to the checks of the docstring and returns it."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("BENCH_")
+           and k not in (UNROLLED, NO_FUSED_GEOM, SUPERSAMPLE)}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "vello_tpu_torch.bench"],
+                            cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"the bench ran past {BENCH_TIMEOUT} s")
+    seconds = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        print(out[-3000:], err[-3000:], sep="\n")
+        fail(f"the bench exited {proc.returncode} with "
+             f"{len(lines)} lines of output")
+    line = lines[-1]
+    got = json.loads(line)
+    extra = got["extra"]
+    print(f"[bench] {seconds:.3f} s; {got['metric']}: {got['value']} fps")
+    if got["metric"] == "error":
+        fail(f"the bench's headline: {got.get('note')}")
+    if (extra["backend"] != "cuda" or extra["device"]["platform"] != "gpu"
+            or extra["build_s"] is None):
+        fail(f"the bench ran on {extra['backend']} ({extra['device']}), "
+             f"build_s {extra['build_s']}")
+    entries = {"headline": extra}
+    for name, e in {**extra["alt_fps"], **extra["scenes"]}.items():
+        if isinstance(e, str) or "error" in e:
+            fail(f"the bench's {name}: {e}")
+        entries[name] = e
+    if set(entries) != set(BENCH_PATHS):
+        fail(f"the bench's entries {sorted(entries)}, expected "
+             f"{sorted(BENCH_PATHS)}")
+    batch = extra["batched"]
+    for name, e in [*entries.items(), ("batched", batch)]:
+        if e.get("retries", 0) != 0 or e.get("device_ms") is None:
+            fail(f"the bench's {name}: retries {e.get('retries')}, "
+                 f"device_ms {e.get('device_ms')}")
+        path = "msaa16" if name == "batched" else BENCH_PATHS[name]
+        k = batch["batch"] if name == "batched" else 1
+        want = {c: k * n for c, n in path_launches[path].items() if n}
+        ref = profiles[path]["summary"]
+        print(f"[bench] {name}: frame_ms {e['frame_ms']:.3f} device_ms "
+              f"{e['device_ms']:.3f} launches {e['launches']}; phase 3's "
+              f"{path}: warm median {ref['warm_ms'][0]:.3f} ms, device ms "
+              f"{ref['device_ms']:.4f}")
+        if e["launches"] != want:
+            fail(f"the bench's {name}: launches {e['launches']}, phase 3's "
+                 f"{path} path {want}")
+    return line
+
+
 def mesh_scene(test_scenes, name, seed):
     return getattr(test_scenes, name)(COMPLEXITY, float(SIZE), seed=seed)
 
@@ -1688,6 +1773,12 @@ def main():
     results.append(run_mesh(Renderer, RenderParams, test_scenes))
     print(f"phase 7: the mesh in {time.perf_counter() - t0:.3f} s")
 
+    # 8. the port's bench at its defaults, in a subprocess
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench_line = run_bench(path_launches, profiles)
+    print(f"phase 8: the bench in {time.perf_counter() - t0:.3f} s")
+
     if args.profile:
         # phase 3's per-path numbers once more, after the profiler tables,
         # so that they stay in the output's tail
@@ -1696,6 +1787,7 @@ def main():
                   "w") as f:
             json.dump(summary, f)
         print(json.dumps({"phase3": summary}))
+    print(bench_line)
     print(card)
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

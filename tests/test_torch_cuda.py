@@ -705,3 +705,19 @@ def test_gpu_supersampled_frame_equals_cpu_frame(cuda, monkeypatch):
     diff = np.abs(r.render_u8(scene, params).astype(np.int16)
                   - cpu_r.render_u8(scene, params).astype(np.int16))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+
+
+def test_bench_headline_on_the_card(cuda):
+    """The port bench's headline entry at 256x256 on the card: K1-K4 once
+    each in its first frame, a device time beside its wall time, and the
+    frame's bytes equal to the Renderer's of the same scene."""
+    from vello_tpu_torch import bench
+    cfg = bench.Settings(complexity=4, size=256, iters=2, batch=2,
+                         cold=False)
+    head = bench.headline(cfg, cuda)
+    assert head.launches == {"flatten": 1, "expand_touches": 1,
+                             "msaa_coverage": 1, "composite_solid": 1}
+    assert head.device_ms > 0 and head.frame_ms > 0
+    want = Renderer(device=cuda).render_u8(filled_mmark(4, 256.0),
+                                           head.params)
+    np.testing.assert_array_equal(head.img.cpu().numpy(), want)

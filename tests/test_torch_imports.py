@@ -42,9 +42,10 @@ assert callable(mesh.render_batch) and isinstance(mesh.MeshRenderer, type)
 assert callable(launch.run_ranks) and callable(dryrun_multichip.run_checks)
 assert callable(mesh_throughput.main)
 from vello_tpu_torch.examples import animation, demo, headless
+from vello_tpu_torch import bench
 from vello_tpu_torch.tools import make_gallery
 assert all(callable(m.main) for m in (animation, demo, headless,
-                                      make_gallery))
+                                      make_gallery, bench))
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "vello_tpu"))
 print("MODULES", len(names), "FOREIGN", len(loaded), loaded[:5])
