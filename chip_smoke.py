@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py --text      # phase 9 alone (builds if needed)
 
 Phases (any failure exits non-zero):
   1. environment: the card's name and power limit, torch and CUDA versions;
@@ -98,10 +99,8 @@ Phases (any failure exits non-zero):
      paths take the oracle minutes) and, against tests/snapshots/
      ref_<name>.png, RGBA8 mean < 0.002 and max < 4.01/255
      (tests/snapshot.py); first-frame s, warm ms over 5 frames and device
-     ms per scene, and the phase's time. Text is not in this phase:
-     loading a font needs fontTools and matplotlib, which the GPU host it
-     was written for does not have (text is held to the JAX package on
-     the CPU, tests/test_torch_text.py);
+     ms per scene, and the phase's time. The three Roboto scenes stay
+     out because the font is not in the repository (text is phase 9);
   7. the mesh (vello_tpu_torch/parallel/mesh.py), its ranks spawned on the
      one card after the build (parallel/launch.run_ranks, a timeout on each
      world): gloo ranks on cuda:0 render at 1600x1600 (a) filled_mmark-30k
@@ -130,7 +129,35 @@ Phases (any failure exits non-zero):
      that differ from phase 3's for the matching path (BENCH_PATHS; the
      batched entry's: B times the msaa16 path's). Its frame_ms beside
      phase 3's warm median is printed, not held: the frames are
-     host-bound.
+     host-bound;
+  9. text, drawn from the repository's font only
+     (vello_tpu_torch/assets/fonts/DejaVuSans.ttf, read by
+     vello_tpu_torch/sfnt.py): the script runs itself with ``--text`` in
+     a subprocess (TEXT_TIMEOUT; its failure fails the run) that prints
+     whether fontTools, matplotlib and PIL import on this host, then sets
+     sys.modules[name] = None for the three before it imports the port.
+     Through Renderer(device="cuda").render at 1024x1024 (the
+     TEXT_CELLS): (a) text_heavy at its defaults (40 lines of 14 px white
+     on the base, area: K1 fill rows, K2, K5, K4); (b) the same in msaa16
+     (K1, K2, K3, K4); (c) text_scene(1024.) (its gradient run through
+     eval_paints and K6: K1, K2, K5, K6); (d) glyph_runs, accented text
+     (composite glyphs) filled, stroked (Stroke(width=1.5, join="round"):
+     Scene.stroke expands it into fills on the host, so K1 takes fill
+     rows) and emboldened (K1, K2, K5, K4), and glyph_raster,
+     runs through the glyph atlas (image paints: K1, K2, K5, K6). Each
+     with overflow 0, no retry, the host's tier and its launches (counts
+     reset just before the first frame, read just after); build s and
+     resolve s of the scene (outlines parsed on the host), first-frame s,
+     warm ms (median of 20), Renderer.profile's device ms by stage (held
+     as in phase 3), device ms, busy share and peak GB; the frame within
+     2.5e-3 mean abs of the port's oracle (b: within SAMPLE_MASK_MEAN of
+     the oracle's msaa16, which supersamples on a 4x4 grid where the
+     device takes the 16-sample mask). Then 512x512 versions of the five
+     (text_heavy at lines=20) within 1 u8 level of the port's CPU frame,
+     and text_scene(128.) against tests/snapshots/text_scene.png with the
+     bars of tests/snapshot.py (RGBA8 mean < 0.002, max < 4.01/255), on
+     the base color of tests/test_torch_text.py. It fails if a font
+     package was loaded.
 The last line is {"ok": true, "device": {...}}; the line before it lists
 the kernels, the one before that the card, and the one before that the
 bench's line. ``--profile DIR`` also writes a torch.profiler table of
@@ -1073,11 +1100,12 @@ def corpus_names():
     return sorted(set(CORPUS_SIZES) - set(ROBOTO_SCENES))
 
 
-def golden_diff(name, img):
+def golden_diff(name, img, png=None):
     """(mean, max) of |golden - frame| / 255 over the RGBA8 channels, the
-    frame (premultiplied f32) quantized as tests/snapshot.py does."""
+    frame (premultiplied f32) quantized as tests/snapshot.py does; the
+    golden tests/snapshots/ref_<name>.png, or ``png`` there."""
     from vello_tpu_torch.utils.png import read_png, to_rgba8
-    golden = read_png(os.path.join(SNAPSHOTS, f"ref_{name}.png"))
+    golden = read_png(os.path.join(SNAPSHOTS, png or f"ref_{name}.png"))
     rgba = to_rgba8(img)
     if golden.shape != rgba.shape:
         fail(f"[corpus {name}] shape {rgba.shape} vs golden {golden.shape}")
@@ -1222,6 +1250,35 @@ BENCH_PATHS = {"headline": "msaa16", "area_quality": "area",
                "gradient_image_mmark": "gradient_image",
                "layered_mmark": "layered"}
 BENCH_TIMEOUT = 600.0
+
+# phase 9: text, from the repository's DejaVu Sans only, in a subprocess
+# (``--text``) that refuses the font packages before it imports the port.
+# cell -> (scene, antialiasing, the launch counters of its frame); each at
+# TEXT_SIZE square, and again at TEXT_CHECK_SIZE against the CPU frame
+TEXT_PACKAGES = ("fontTools", "matplotlib", "PIL")
+TEXT_SIZE = 1024
+TEXT_CHECK_SIZE = 512
+TEXT_CELLS = {
+    "text_heavy": ("text_heavy", "area",
+                   ("flatten", "expand_touches", "coverage_area",
+                    "composite_solid")),
+    "text_heavy_msaa16": ("text_heavy", "msaa16",
+                          ("flatten", "expand_touches", "msaa_coverage",
+                           "composite_solid")),
+    "text_scene": ("text_scene", "area",
+                   ("flatten", "expand_touches", "coverage_area",
+                    "composite_src")),
+    "glyph_runs": ("glyph_runs", "area",
+                   ("flatten", "expand_touches", "coverage_area",
+                    "composite_solid")),
+    "glyph_raster": ("glyph_raster", "area",
+                     ("flatten", "expand_touches", "coverage_area",
+                      "composite_src")),
+}
+# text_scene(128.) against its golden tests/snapshots/text_scene.png, on
+# the base color of tests/test_torch_text.py
+TEXT_GOLDEN_BASE = (0.05, 0.05, 0.05, 1.0)
+TEXT_TIMEOUT = 600.0
 
 
 def run_bench(path_launches, profiles):
@@ -1508,12 +1565,192 @@ def run_mesh(Renderer, RenderParams, test_scenes):
     return raw_entry
 
 
+def text_cell_scene(test_scenes, scene_name, size):
+    """A phase 9 scene at ``size``: text_heavy with 40 lines at TEXT_SIZE
+    (its defaults) and 20 below, text_scene, or glyph_runs (raster for
+    glyph_raster)."""
+    if scene_name == "text_heavy":
+        return test_scenes.text_heavy(float(size),
+                                      lines=40 if size >= TEXT_SIZE else 20)
+    if scene_name == "text_scene":
+        return test_scenes.text_scene(float(size))
+    return test_scenes.glyph_runs(float(size),
+                                  raster=scene_name == "glyph_raster")
+
+
+def run_text_cell(cell, kernels, Renderer, RenderParams, resolve,
+                  test_scenes):
+    """One phase 9 cell at TEXT_SIZE through Renderer(device="cuda"): the
+    host's tier, no retry, overflow 0, its kernels' launches; first-frame
+    s, warm ms, Renderer.profile's stages, device ms, peak GB, the scene's
+    build and resolve s; the frame within ORACLE_MEAN_TOL of the port's
+    oracle. Returns its numbers."""
+    from vello_tpu_torch.oracle import OracleRenderer
+    from vello_tpu_torch.utils.profile import profile_stages
+    scene_name, aa, used = TEXT_CELLS[cell]
+    t0 = time.perf_counter()
+    scene = text_cell_scene(test_scenes, scene_name, TEXT_SIZE)
+    build_s = time.perf_counter() - t0
+    params = RenderParams(TEXT_SIZE, TEXT_SIZE, base_color=BASE,
+                          antialiasing=aa)
+    t0 = time.perf_counter()
+    rs = resolve(scene.encoding, params)
+    resolve_s = time.perf_counter() - t0
+    want_tier = rs.capacities(params).key()
+    n_paths, n_segs = rs.n_paths, rs.n_segs
+    del rs
+    expected = {name: int(name in used) for name in kernels.launches}
+    r = Renderer(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    img = r.render(scene, params)
+    first_s = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    prof = r.last_profile
+    print(f"[{cell}] {TEXT_SIZE}x{TEXT_SIZE} {aa}: build_s {build_s:.4f} "
+          f"resolve_s {resolve_s:.4f} paths {n_paths} segments {n_segs} "
+          f"first_frame_s {first_s:.4f} tier {prof['tier']} retries "
+          f"{prof['retries']} n_live {prof['n_live']} launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if prof["retries"] != 0 or prof["tier"] != dict(zip(prof["tier"],
+                                                        want_tier)):
+        fail(f"[{cell}] tier {prof['tier']} / retries {prof['retries']}: "
+             f"expected the host's tier {want_tier} and no retry")
+    if launches != expected:
+        fail(f"[{cell}] launches {launches} in one frame, expected "
+             f"{expected}")
+    if img.shape != (TEXT_SIZE, TEXT_SIZE, 4) or not np.isfinite(img).all():
+        fail(f"[{cell}] image {img.shape}, not finite")
+    frame = r.frame_thunk()
+    _, overflow = frame()
+    if int(overflow) != 0:
+        fail(f"[{cell}] warm frame overflow {int(overflow)}")
+    times = []
+    for _ in range(WARM_FRAMES):
+        t0 = time.perf_counter()
+        frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    warm = statistics.median(times)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    stages = r.profile(scene, params)
+    in_frame = check_stages(cell, stages, r.last_profile["kernels"], used,
+                            launches)
+    device_ms = profile_stages(frame)["_total"]
+    # the oracle renders msaa by supersampling (centers on a 4x4 grid for
+    # msaa16), not by the 16-sample mask: an msaa cell takes the bar of the
+    # two, SAMPLE_MASK_MEAN (phase 3), an area cell the corpus bar
+    bar = ORACLE_MEAN_TOL if aa == "area" else SAMPLE_MASK_MEAN
+    t0 = time.perf_counter()
+    omean = float(np.abs(img - OracleRenderer().render(scene, params))
+                  .mean())
+    oracle_s = time.perf_counter() - t0
+    print(f"[{cell}] warm_ms_per_frame median {warm:.3f} min "
+          f"{min(times):.3f} max {max(times):.3f} over {WARM_FRAMES} frames; "
+          f"device_ms_per_frame {device_ms:.4f} busy share "
+          f"{device_ms / warm:.3f}; peak_mem_gb {peak_gb:.2f}; oracle mean "
+          f"abs {omean} (bar {bar}, the oracle {oracle_s:.1f} s)")
+    print(f"[{cell}] Renderer.profile device ms per frame: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + "; in-frame kernel ms per launch "
+          + ", ".join(f"{k} {v:.4f}" for k, v in in_frame.items()))
+    if not omean < bar:
+        fail(f"[{cell}] mean abs {omean} against the port's oracle, bar "
+             f"{bar}")
+    return {"aa": aa, "build_s": build_s, "resolve_s": resolve_s,
+            "paths": n_paths, "segments": n_segs, "first_frame_s": first_s,
+            "tier": prof["tier"], "launches": {k: v for k, v in
+                                               launches.items() if v},
+            "warm_ms": [warm, min(times), max(times)], "peak_gb": peak_gb,
+            "device_ms": device_ms, "busy": device_ms / warm,
+            "profile_stages_ms": stages, "in_frame_ms_per_launch": in_frame,
+            "oracle_mean_abs": omean}
+
+
+def run_text(kernels, Renderer, RenderParams, resolve):
+    """Phase 9 (run by ``--text``, after the font packages were refused):
+    the TEXT_CELLS at TEXT_SIZE, then each at TEXT_CHECK_SIZE within 1 u8
+    level of the port's CPU frame, then text_scene(128.) against its
+    golden. Returns {cell: numbers}."""
+    from vello_tpu_torch.scenes import test_scenes
+    from vello_tpu_torch.text import default_font
+    font = default_font()
+    print(f"[text] default font {os.path.relpath(font.path, REPO)}: "
+          f"{font.sfnt.num_glyphs} glyphs, {len(font._cmap)} code points")
+    cells = {cell: run_text_cell(cell, kernels, Renderer, RenderParams,
+                                 resolve, test_scenes)
+             for cell in TEXT_CELLS}
+    n = TEXT_CHECK_SIZE
+    for cell, (scene_name, aa, _) in TEXT_CELLS.items():
+        scene = text_cell_scene(test_scenes, scene_name, n)
+        params = RenderParams(n, n, base_color=BASE, antialiasing=aa)
+        gpu_img = Renderer(device="cuda").render_u8(scene, params)
+        cpu_img = Renderer(device="cpu").render_u8(scene, params)
+        diff = np.abs(gpu_img.astype(np.int16) - cpu_img.astype(np.int16))
+        print(f"image_check {n}x{n} {cell} ({scene_name} {aa}): max diff "
+              f"{int(diff.max())}, identical {float((diff == 0).mean()):.6f}")
+        if diff.max() > 1:
+            fail(f"{cell}: GPU and CPU images differ by {int(diff.max())} "
+                 f"levels")
+    img = Renderer(device="cuda").render(
+        test_scenes.text_scene(128.0),
+        RenderParams(128, 128, base_color=TEXT_GOLDEN_BASE))
+    gmean, gmax = golden_diff("text_scene", img, png="text_scene.png")
+    print(f"[text_scene 128x128] golden tests/snapshots/text_scene.png: mean "
+          f"{gmean:.6f} (bar {GOLDEN_MEAN_TOL}) max {gmax * 255:.2f}/255 (bar "
+          f"{GOLDEN_MAX_TOL * 255:.2f}/255)")
+    if not (gmean < GOLDEN_MEAN_TOL and gmax < GOLDEN_MAX_TOL):
+        fail(f"text_scene(128.): golden mean {gmean}, max {gmax}")
+    loaded = sorted(m for m, v in sys.modules.items()
+                    if v is not None and m.split(".")[0] in TEXT_PACKAGES)
+    print(f"[text] font packages loaded in this process: {loaded}")
+    if loaded:
+        fail(f"phase 9 loaded {loaded}")
+    return cells
+
+
+def run_text_phase():
+    """Phase 9: ``chip_smoke.py --text`` in its own process and session
+    (its kernels built by phase 2; no path variable of this process passed
+    on); its output is printed here. Fails on its failure or timeout."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in (UNROLLED, NO_FUSED_GEOM, SUPERSAMPLE)}
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--text"], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=TEXT_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"phase 9 ran past {TEXT_TIMEOUT} s")
+    print(out, end="")
+    if proc.returncode != 0:
+        print(err[-3000:])
+        fail(f"phase 9 exited {proc.returncode}")
+    return json.loads(out.strip().splitlines()[-1])["text"]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler table of 3 warm frames of "
                          "each path")
+    ap.add_argument("--text", action="store_true",
+                    help="run phase 9 alone (the build if needed, then the "
+                         "text cells), fontTools, matplotlib and PIL refused")
     args = ap.parse_args()
+    if args.text:
+        from importlib.util import find_spec
+        print("[text] on this host: " + ", ".join(
+            f"{name} {'imports' if find_spec(name) else 'is absent'}"
+            for name in TEXT_PACKAGES) + "; phase 9 refuses all three")
+        # before the port is imported: text must need none of them
+        for name in TEXT_PACKAGES:
+            sys.modules[name] = None
 
     # 1. environment
     if not torch.cuda.is_available():
@@ -1534,6 +1771,17 @@ def main():
     from vello_tpu_torch.ops import fine, kernels
     from vello_tpu_torch.scenes import test_scenes
     from vello_tpu_torch.utils.profile import stage
+
+    if args.text:
+        t0 = time.perf_counter()
+        kernels.build()
+        print(f"build_s {time.perf_counter() - t0:.3f} (skipped when built)")
+        t0 = time.perf_counter()
+        cells = run_text(kernels, Renderer, RenderParams, resolve)
+        print(f"--text: the text cells and their checks in "
+              f"{time.perf_counter() - t0:.3f} s")
+        print(json.dumps({"text": cells}))
+        return
 
     # 2. build
     t0 = time.perf_counter()
@@ -1778,6 +2026,11 @@ def main():
     t0 = time.perf_counter()
     bench_line = run_bench(path_launches, profiles)
     print(f"phase 8: the bench in {time.perf_counter() - t0:.3f} s")
+
+    # 9. text, in a process that refuses the font packages
+    t0 = time.perf_counter()
+    run_text_phase()
+    print(f"phase 9: text in {time.perf_counter() - t0:.3f} s")
 
     if args.profile:
         # phase 3's per-path numbers once more, after the profiler tables,

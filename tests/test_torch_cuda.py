@@ -721,3 +721,28 @@ def test_bench_headline_on_the_card(cuda):
     want = Renderer(device=cuda).render_u8(filled_mmark(4, 256.0),
                                            head.params)
     np.testing.assert_array_equal(head.img.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("aa", ["area", "msaa16"])
+@pytest.mark.parametrize("scene,composite", [
+    ("text_heavy", "composite_solid"), ("glyph_runs", "composite_solid"),
+    ("glyph_raster", "composite_src")])
+def test_gpu_text_frames_equal_cpu_frames(cuda, scene, composite, aa):
+    """Text drawn from the package's DejaVu Sans (sfnt.py) on the card:
+    K1, K2, the coverage kernel and the composite once each, the frame
+    within 1 u8 level of the CPU frame."""
+    from vello_tpu_torch.scenes.test_scenes import glyph_runs, text_heavy
+    built = (text_heavy(256.0, lines=8) if scene == "text_heavy"
+             else glyph_runs(256.0, raster=scene == "glyph_raster"))
+    params = RenderParams(256, 256, base_color=(0.1, 0.1, 0.1, 1.0),
+                          antialiasing=aa)
+    rs = resolve(built.encoding, params)
+    kernels.reset_launches()
+    gpu = Renderer(device=cuda).render_resolved(rs, params, out="rgba8")
+    counts = dict(kernels.launches)
+    coverage = "msaa_coverage" if aa == "msaa16" else "coverage_area"
+    used = {"flatten", "expand_touches", coverage, composite}
+    assert counts == {k: int(k in used) for k in counts}, counts
+    cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
+    diff = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
+    assert diff.max() <= 1, int(diff.max())

@@ -65,7 +65,8 @@ HOST_MODULES = ("vello_tpu_torch.text", "vello_tpu_torch.colr",
                 "vello_tpu_torch.utils.probe", "vello_tpu_torch.utils.debug")
 
 # the font libraries refused at import, as on a host without them: every
-# module still imports, and the oracle, the corpus, SVG and the probe run
+# module still imports, and the oracle, the corpus, SVG, the probe and
+# text run
 _NO_FONT_LIBS = """
 import importlib
 import importlib.abc
@@ -92,13 +93,20 @@ img = OracleRenderer().render(scene, vello_tpu_torch.RenderParams(32, 32))
 assert img.shape == (32, 32, 4) and img[..., 3].max() > 0
 assert probe.run_probe(vello_tpu_torch.Renderer(device="cpu"))
 svg.load_svg('<svg><path d="M1 1 L9 1 L5 8 Z"/></svg>')
+# text reads its font itself; hinting still needs PIL
+from vello_tpu_torch.text import default_font, layout_text
+s = vello_tpu_torch.Scene()
+s.draw_text("x", 0, 10, 10, vello_tpu_torch.palette.WHITE)
+assert vello_tpu_torch.resolve(
+    s.encoding, vello_tpu_torch.RenderParams(16, 16)).n_segs > 0
 try:
-    vello_tpu_torch.Scene().draw_text("x", 0, 10, 10,
-                                      vello_tpu_torch.palette.WHITE)
+    (s.draw_glyphs(default_font()).font_size(10.0).hint(True)
+     .draw(vello_tpu_torch.Fill.NON_ZERO,
+           layout_text(default_font(), 10.0, "x", (0.0, 10.0))))
 except ImportError:
     pass
 else:
-    raise AssertionError("text drew without its font libraries")
+    raise AssertionError("hinting ran without PIL")
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "vello_tpu", "fontTools", "PIL",
                  "matplotlib"))

@@ -10,8 +10,10 @@ Supported: fills and device strokes with solid, gradient (linear, radial,
 sweep), image (nearest, bilinear, bicubic) and blurred-rect paints; layers
 (clips, group alpha, mix and compose modes, luminance and alpha masks,
 layer filters); text (``Scene.draw_text`` / ``draw_glyphs``: outlines,
-COLR v0/v1 and bitmap glyphs, hinted, raster and emboldened runs; font
-loading needs fontTools, hinting PIL, the default font matplotlib); area
+COLR v0/v1 and bitmap glyphs, hinted, raster and emboldened runs; fonts
+are read by ``sfnt.py``, the default DejaVu Sans ships in
+``assets/fonts/``; variable locations, COLR v1 and bitmap strikes need
+fontTools, hinting PIL); area
 (the default), centers, msaa8 or msaa16 antialiasing. A CPU tensor runs
 each kernel's plain PyTorch version; a CUDA tensor runs the kernel (built
 with ``nvcc`` at first use). The host side also holds the CPU oracle

@@ -9,7 +9,10 @@ glyph and emitted as ordinary scene ops — fills, gradients, clip layers
 blend layers for composite modes.
 
 All coordinates stay in glyph space (y-up font units); the caller's
-glyph transform maps them to device space.
+glyph transform maps them to device space. Both still read the font
+through fontTools, and bitmaps decode through PIL (ROADMAP items 25 and
+26): without them, a font with COLR v1 or bitmap strikes raises
+ImportError when a run draws with it.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ class ColrV1:
 
     def __init__(self, font):
         self.font = font
-        tt = font.tt
+        tt = self.tt = font.fonttools("colr_v1")
         self.table = tt["COLR"].table
         self.palettes = tt["CPAL"].palettes
         self.base = {r.BaseGlyph: r.Paint
@@ -68,7 +71,7 @@ class ColrV1:
         self.bbox = (head.xMin, head.yMin, head.xMax, head.yMax)
 
     def has_glyph(self, gid: int) -> bool:
-        return self.font.glyph_order[gid] in self.base
+        return self.tt.getGlyphName(gid) in self.base
 
     def _color(self, palette_ix: int, alpha: float,
                foreground: Color) -> Color:
@@ -94,7 +97,7 @@ class ColrV1:
              foreground: Color) -> bool:
         """Emit the glyph's paint graph into the scene. transform maps
         glyph space (font units, y-up) to device space."""
-        paint = self.base.get(self.font.glyph_order[gid])
+        paint = self.base.get(self.tt.getGlyphName(gid))
         if paint is None:
             return False
         # whole-glyph clip so unbounded fills never leak
@@ -136,7 +139,7 @@ class ColrV1:
             scene.fill(Fill.NON_ZERO, t, g, None, self._fill_rect())
         elif f == 10:   # PaintGlyph: clip to outline
             from .text import _GLOBAL_CACHE
-            ggid = self.font.tt.getGlyphID(p.Glyph)
+            ggid = self.tt.getGlyphID(p.Glyph)
             outline = _GLOBAL_CACHE.outline(self.font, ggid)
             if outline.is_empty():
                 return
@@ -210,9 +213,13 @@ def bitmap_glyph(font, gid: int):
     Returns (Image rgba8, bearing_x_px, bearing_y_px, ppem) or None.
     bearing_y is the distance from the baseline UP to the bitmap top
     (pixels at the strike's ppem)."""
-    from PIL import Image as PILImage
-    tt = font.tt
-    name = font.glyph_order[gid]
+    from .text import package_missing
+    tt = font.fonttools("bitmaps")
+    try:
+        from PIL import Image as PILImage
+    except ImportError as e:
+        raise package_missing("bitmaps") from e
+    name = tt.getGlyphName(gid)
     if "CBLC" in tt and "CBDT" in tt:
         strikes = tt["CBLC"].strikes
         best = max(range(len(strikes)),

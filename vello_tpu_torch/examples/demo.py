@@ -14,7 +14,7 @@ Usage:
       [--cpu]
 
 Runs on the GPU unless ``--cpu`` is given (``Renderer(device="cpu")``).
-The HUD's text needs fontTools and matplotlib. The last frame goes to
+The HUD's text is drawn in the package's DejaVu Sans. The last frame goes to
 ``demo_last.png`` in the temporary directory.
 """
 import argparse

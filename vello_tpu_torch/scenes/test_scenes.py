@@ -417,6 +417,34 @@ def text_heavy(size: float = 1024.0, lines: int = 40) -> Scene:
     return s
 
 
+ACCENTED = "Ångström café naïve — Ωμέγα"
+
+
+def glyph_runs(size: float = 1024.0, raster: bool = False) -> Scene:
+    """Accented DejaVu Sans, whose letters are composite glyphs (a base
+    and its accent): a filled, a stroked and an emboldened run, or with
+    ``raster`` filled runs through the glyph atlas (image rects)."""
+    from ..text import default_font, layout_text
+    s = Scene()
+    font = default_font()
+    k = size / 256.0
+    px = 13.0 * k
+    glyphs = layout_text(font, px, ACCENTED)
+
+    def run(line, color):
+        origin = Affine.translate(6.0 * k, (40.0 + 50.0 * line) * k)
+        return (s.draw_glyphs(font).font_size(px).brush(color)
+                .transform(origin))
+    if raster:
+        run(0, palette.WHITE).raster(True).draw(Fill.NON_ZERO, glyphs)
+        run(1, palette.LIME).raster(True).draw(Fill.NON_ZERO, glyphs)
+    else:
+        run(0, palette.WHITE).draw(Fill.NON_ZERO, glyphs)
+        run(1, palette.YELLOW).draw(Stroke(width=1.5, join="round"), glyphs)
+        run(2, palette.CYAN).embolden(0.6 * k).draw(Fill.NON_ZERO, glyphs)
+    return s
+
+
 DEVICE_SCENES["text_scene"] = text_scene
 
 

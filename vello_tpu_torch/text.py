@@ -2,16 +2,22 @@
 
 Reference parity: ``vello::DrawGlyphs`` (``vello/src/scene.rs:487-893``), the
 glyph resolver + cache (``vello_encoding/src/glyph_cache.rs``, ``glifo``).
-Font parsing is delegated to fontTools the way the reference delegates to the
-``skrifa`` crate (an external foundation, SURVEY.md §1 L0). Outlines are
-cached per (font, glyph-id) in font units — scaling happens through the
-affine transform, so one cache entry serves every size (the reference caches
-per size because of hinting, which we don't apply).
+The port reads its fonts itself (``sfnt.py``: metrics, cmap, glyf outlines,
+COLR v0 and CPAL), the job ``skrifa`` does for the reference (SURVEY.md §1
+L0), and ships its default font, DejaVu Sans, in ``assets/fonts/`` (its
+licence in ``LICENSE_DEJAVU`` there). A font package is imported only for
+the features in ``FONT_PACKAGE_FEATURES``, each queued in ROADMAP.md, and
+only when a font or a run asks for one. Outlines are cached per (font,
+glyph-id) in font units — scaling happens through the affine transform, so
+one cache entry serves every size (the reference caches per size because
+of hinting, which we don't apply).
 """
 
 from __future__ import annotations
 
+import errno
 import functools
+import os
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
@@ -19,49 +25,95 @@ import numpy as np
 
 from .kurbo import Affine, BezPath
 from .peniko import Brush, Color, Fill
+from .sfnt import SfntFont
+
+FONT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
+                        "fonts")
+DEFAULT_FONT = os.path.join(FONT_DIR, "DejaVuSans.ttf")
+
+# the features still read through a font package: feature -> (package,
+# what it is, its item in ROADMAP.md)
+FONT_PACKAGE_FEATURES = {
+    "variations": ("fontTools", "variable-font instancing (gvar, fvar, avar)",
+                   24),
+    "colr_v1": ("fontTools", "the COLR v1 paint graph", 25),
+    "bitmaps": ("fontTools and PIL", "CBDT/sbix bitmap strikes", 26),
+    "hinting": ("PIL", "hinting through FreeType", 27),
+    "cff": ("fontTools", "CFF outlines", 28),
+}
+
+
+def package_missing(feature: str) -> ImportError:
+    """The error of a feature whose font package is not installed."""
+    package, what, item = FONT_PACKAGE_FEATURES[feature]
+    return ImportError(f"{what} needs {package}, which is not installed "
+                       f"(ROADMAP.md item {item}); outlines, metrics and COLR "
+                       f"v0 need no font package")
 
 
 class Font:
-    """A TrueType/OpenType font backed by fontTools (the ``skrifa`` analog,
-    SURVEY.md §1 L0: outlines, variable fonts, COLR).
+    """A TrueType/OpenType font (the ``skrifa`` analog, SURVEY.md §1 L0):
+    metrics, cmap, glyf outlines and COLR v0 from ``sfnt.SfntFont``.
 
     variations: optional {axis_tag: user value} for variable fonts — the
     skrifa ``LocationRef`` analog (vello/src/scene.rs DrawGlyphs
-    normalized_coords). Each Font instance gets its own cache id, so two
-    instances of one file at different locations never share outlines."""
+    normalized_coords); instancing goes through fontTools (ROADMAP item
+    24). Each Font instance gets its own cache id, so two instances of one
+    file at different locations never share outlines."""
 
     _next_id = [0]
 
     def __init__(self, path: str, variations: Optional[dict] = None):
-        from fontTools.ttLib import TTFont
-
         self.path = path
         self.variations = dict(variations) if variations else None
-        self.tt = TTFont(path, lazy=True)
-        self.upem = self.tt["head"].unitsPerEm
-        self.glyph_order = self.tt.getGlyphOrder()
-        self._cmap = self.tt.getBestCmap()
-        self._hmtx = self.tt["hmtx"]
-        try:
-            if self.variations and "fvar" in self.tt:
-                self._glyph_set = self.tt.getGlyphSet(
-                    location=self.variations)
-            else:
-                self._glyph_set = self.tt.getGlyphSet()
-        except Exception:
-            self._glyph_set = None   # bitmap-only font (e.g. CBDT/CBLC)
+        with open(path, "rb") as f:
+            self.sfnt = SfntFont(f.read())
+        tables = self.sfnt.tables
+        self.upem = self.sfnt.units_per_em
+        self._cmap = self.sfnt.cmap          # code point -> glyph id
+        self._tt = None
+        # fontTools' glyph set, for the outlines sfnt.py does not read: a
+        # variable font at a location, or CFF outlines
+        self._glyph_set = None
+        if self.variations and "fvar" in tables:
+            self._glyph_set = self.fonttools("variations").getGlyphSet(
+                location=self.variations)
+        elif "glyf" not in tables and ("CFF " in tables or "CFF2" in tables):
+            self._glyph_set = self.fonttools("cff").getGlyphSet()
         self.id = Font._next_id[0]
         Font._next_id[0] += 1
-        self._colr = None
-        colr_version = getattr(self.tt["COLR"], "version", 0) \
-            if "COLR" in self.tt else None
-        if colr_version == 0 and "CPAL" in self.tt:
-            self._colr = self.tt["COLR"].ColorLayers
-            self._cpal = self.tt["CPAL"].palettes
+        colr_version = self.sfnt.colr_version
+        self._cpal = (self.sfnt.palettes()
+                      if colr_version == 0 and "CPAL" in tables else None)
         self._colr_v1 = None
-        self._has_colr_v1 = colr_version == 1 and "CPAL" in self.tt
-        self.has_bitmaps = ("CBDT" in self.tt and "CBLC" in self.tt) \
-            or "sbix" in self.tt
+        self._has_colr_v1 = colr_version == 1 and "CPAL" in tables
+        self.has_bitmaps = ("CBDT" in tables and "CBLC" in tables) \
+            or "sbix" in tables
+
+    def fonttools(self, feature: str):
+        """fontTools' ``TTFont`` of this file, opened at first use, for one
+        of the features of ``FONT_PACKAGE_FEATURES``."""
+        if self._tt is None:
+            try:
+                from fontTools.ttLib import TTFont
+            except ImportError as e:
+                raise package_missing(feature) from e
+            self._tt = TTFont(self.path, lazy=True)
+        return self._tt
+
+    @property
+    def tt(self):
+        """fontTools' ``TTFont`` (lazy): read only by the features that are
+        still on fontTools."""
+        return self.fonttools("variations" if self.variations
+                              else "colr_v1" if self._has_colr_v1
+                              else "bitmaps" if self.has_bitmaps else "cff")
+
+    @property
+    def glyph_order(self) -> List[str]:
+        """Glyph names (from fontTools: the COLR v1 and bitmap paths look
+        glyphs up by name)."""
+        return self.tt.getGlyphOrder()
 
     def colr_v1(self):
         """Lazy COLR v1 paint-graph renderer (None if absent)."""
@@ -83,37 +135,31 @@ class Font:
         to top, or None if this glyph has no color layers (the COLR
         painting adapter of vello/src/scene.rs:957-1131; palette index
         0xFFFF = the run's foreground brush)."""
-        if self._colr is None:
+        if self._cpal is None:
             return None
-        layers = self._colr.get(self.glyph_order[gid])
+        layers = self.sfnt.colr_layers(gid)
         if not layers:
             return None
         pal = self._cpal[palette]
         out = []
-        for rec in layers:
-            lgid = self.tt.getGlyphID(rec.name)
-            if rec.colorID == 0xFFFF:
+        for lgid, color_id in layers:
+            if color_id == 0xFFFF:
                 out.append((lgid, None))
             else:
-                c = pal[rec.colorID]
-                out.append((lgid, Color(c.red / 255.0, c.green / 255.0,
-                                        c.blue / 255.0, c.alpha / 255.0)))
+                r, g, b, a = pal[color_id]
+                out.append((lgid, Color(r / 255.0, g / 255.0, b / 255.0,
+                                        a / 255.0)))
         return out
 
     def glyph_id(self, ch: str) -> int:
-        name = self._cmap.get(ord(ch))
-        if name is None:
-            return 0
-        return self.tt.getGlyphID(name)
+        return self._cmap.get(ord(ch), 0)
 
     def advance(self, gid: int) -> float:
-        name = self.glyph_order[gid]
-        return self._hmtx[name][0]
+        return self.sfnt.advances[gid]
 
     def line_metrics(self) -> Tuple[float, float, float]:
         """(ascent, descent, line_gap) in font units."""
-        hhea = self.tt["hhea"]
-        return hhea.ascent, hhea.descent, hhea.lineGap
+        return self.sfnt.ascent, self.sfnt.descent, self.sfnt.line_gap
 
 
 class _PathPen:
@@ -165,7 +211,10 @@ class _NeedsDecompose(Exception):
 
 class GlyphCache:
     """(font.id, gid) -> BezPath outline in font units (glyph_cache.rs
-    analog; LRU maintenance via generation counting)."""
+    analog; LRU maintenance via generation counting). Outlines come from
+    ``sfnt.SfntFont.draw`` by glyph id; the same pen records the same path
+    from fontTools' glyph set, which draws a variable font's location and
+    CFF outlines."""
 
     def __init__(self, max_entries: int = 4096):
         self._cache: Dict[Tuple[int, int], BezPath] = {}
@@ -181,21 +230,23 @@ class GlyphCache:
             self._cache[key] = got   # re-insert: most-recently-used at end
             return got
         self.misses += 1
-        if font._glyph_set is None:
-            return BezPath()
-        name = font.glyph_order[gid]
-        glyph = font._glyph_set[name]
         pen = _PathPen()
-        try:
-            glyph.draw(pen)
-        except _NeedsDecompose:
-            # composite glyph: decompose components
-            from fontTools.pens.recordingPen import DecomposingRecordingPen
+        if font._glyph_set is None:
+            font.sfnt.draw(gid, pen)
+        else:
+            # a variable location or CFF outlines, through fontTools
+            glyph = font._glyph_set[font.tt.getGlyphName(gid)]
+            try:
+                glyph.draw(pen)
+            except _NeedsDecompose:
+                # composite glyph: decompose components
+                from fontTools.pens.recordingPen import \
+                    DecomposingRecordingPen
 
-            rp = DecomposingRecordingPen(font._glyph_set)
-            glyph.draw(rp)
-            pen = _PathPen()
-            rp.replay(pen)
+                rp = DecomposingRecordingPen(font._glyph_set)
+                glyph.draw(rp)
+                pen = _PathPen()
+                rp.replay(pen)
         if len(self._cache) >= self.max_entries:
             # LRU eviction (dicts preserve insertion order; hits re-insert)
             self._cache.pop(next(iter(self._cache)))
@@ -330,7 +381,8 @@ class DrawGlyphs:
 
     def hint(self, on: bool = True) -> "DrawGlyphs":
         """Grid-fitted (hinted) rendering for small solid-color text:
-        glyphs rasterize through FreeType's hinter (via PIL) and land on
+        glyphs rasterize through FreeType's hinter (via PIL, ROADMAP item
+        27: without it an applicable run raises ImportError) and land on
         integer pixel positions — the glifo hinting-cache role. Falls
         back to vector outlines for non-solid brushes, glyph transforms,
         or non-translation run transforms (the reference's own hinting
@@ -453,12 +505,13 @@ class DrawGlyphs:
 
     def _draw_hinted(self, style, glyphs):
         """FreeType-hinted raster path (solid brush, pure translation).
-        Returns None (caller falls back) when the font can't be loaded by
-        FreeType; otherwise draws and returns True."""
+        Raises ImportError without PIL (ROADMAP item 27); returns None
+        (caller falls back) when the font can't be loaded by FreeType;
+        otherwise draws and returns True."""
         try:
             from PIL import ImageFont
-        except ImportError:
-            return None
+        except ImportError as e:
+            raise package_missing("hinting") from e
         key = (self.font.path, int(round(self._size)))
         pil = _PIL_FONTS.get(key)
         if pil is None:
@@ -470,8 +523,7 @@ class DrawGlyphs:
             _PIL_FONTS[key] = pil
         rev = getattr(self.font, "_rev_cmap", None)
         if rev is None:
-            rev = {self.font.tt.getGlyphID(n): chr(cp)
-                   for cp, n in self.font._cmap.items()}
+            rev = {gid: chr(cp) for cp, gid in self.font._cmap.items()}
             self.font._rev_cmap = rev
         ascent, _ = pil.getmetrics()
         tx, ty = self._transform.coeffs[4], self._transform.coeffs[5]
@@ -535,10 +587,8 @@ def layout_text(font: Font, size: float, text: str,
 
 @functools.lru_cache(maxsize=4)
 def default_font() -> Font:
-    """DejaVu Sans from the matplotlib data dir (always present here)."""
-    import matplotlib
-
-    import os
-    p = os.path.join(matplotlib.get_data_path(), "fonts", "ttf",
-                     "DejaVuSans.ttf")
-    return Font(p)
+    """DejaVu Sans, shipped with the package (``assets/fonts/``)."""
+    if not os.path.isfile(DEFAULT_FONT):
+        raise FileNotFoundError(errno.ENOENT, "the default font is missing",
+                                DEFAULT_FONT)
+    return Font(DEFAULT_FONT)
