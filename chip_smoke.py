@@ -130,9 +130,9 @@ Phases (any failure exits non-zero):
      batched entry's: B times the msaa16 path's). Its frame_ms beside
      phase 3's warm median is printed, not held: the frames are
      host-bound;
-  9. text, drawn from the repository's font only
-     (vello_tpu_torch/assets/fonts/DejaVuSans.ttf, read by
-     vello_tpu_torch/sfnt.py): the script runs itself with ``--text`` in
+  9. text, drawn from the repository's fonts only
+     (vello_tpu_torch/assets/fonts/, read by vello_tpu_torch/sfnt.py):
+     the script runs itself with ``--text`` in
      a subprocess (TEXT_TIMEOUT; its failure fails the run) that prints
      whether fontTools, matplotlib and PIL import on this host, then sets
      sys.modules[name] = None for the three before it imports the port.
@@ -144,7 +144,17 @@ Phases (any failure exits non-zero):
      (composite glyphs) filled, stroked (Stroke(width=1.5, join="round"):
      Scene.stroke expands it into fills on the host, so K1 takes fill
      rows) and emboldened (K1, K2, K5, K4), and glyph_raster,
-     runs through the glyph atlas (image paints: K1, K2, K5, K6). Each
+     runs through the glyph atlas (image paints: K1, K2, K5, K6); (e)
+     color_glyphs, an emoji picker (PICKERS: a DejaVu header over 8 x 6
+     glyphs at 96 px) from vello_tpu_torch/assets/fonts/test/
+     ColrV1Paints.ttf, COLR v1 paint graphs read by sfnt.py, their clip
+     and blend layers through the layered compositor (K1, K2, K5, K7 once
+     per non-empty draws op; its largest op held equal to its plain
+     version, its launches' profiled ms beside the sum of their bounds;
+     the pushes, pops and the pops' device ms), and (f) bitmap_glyphs,
+     the same grid from the CBDT and the sbix font (their PNGs decoded by
+     utils/png.py; image rects: K1, K2, K5, K6, its call held equal to
+     its plain version). Each
      with overflow 0, no retry, the host's tier and its launches (counts
      reset just before the first frame, read just after); build s and
      resolve s of the scene (outlines parsed on the host), first-frame s,
@@ -152,8 +162,11 @@ Phases (any failure exits non-zero):
      as in phase 3), device ms, busy share and peak GB; the frame within
      2.5e-3 mean abs of the port's oracle (b: within SAMPLE_MASK_MEAN of
      the oracle's msaa16, which supersamples on a 4x4 grid where the
-     device takes the 16-sample mask). Then 512x512 versions of the five
-     (text_heavy at lines=20) within 1 u8 level of the port's CPU frame,
+     device takes the 16-sample mask), the oracle frames rendered after
+     the timed ones, in parallel worker processes (spawned, refusing the
+     font packages too). Then 512x512 versions of the
+     seven (text_heavy at lines=20) within 1 u8 level of the port's CPU
+     frame,
      and text_scene(128.) against tests/snapshots/text_scene.png with the
      bars of tests/snapshot.py (RGBA8 mean < 0.002, max < 4.01/255), on
      the base color of tests/test_torch_text.py. It fails if a font
@@ -1251,7 +1264,7 @@ BENCH_PATHS = {"headline": "msaa16", "area_quality": "area",
                "layered_mmark": "layered"}
 BENCH_TIMEOUT = 600.0
 
-# phase 9: text, from the repository's DejaVu Sans only, in a subprocess
+# phase 9: text, from the repository's fonts only, in a subprocess
 # (``--text``) that refuses the font packages before it imports the port.
 # cell -> (scene, antialiasing, the launch counters of its frame); each at
 # TEXT_SIZE square, and again at TEXT_CHECK_SIZE against the CPU frame
@@ -1274,6 +1287,34 @@ TEXT_CELLS = {
     "glyph_raster": ("glyph_raster", "area",
                      ("flatten", "expand_touches", "coverage_area",
                       "composite_src")),
+    # the emoji pickers (PICKERS): COLR v1 glyphs through the layered
+    # compositor, K7 once per non-empty draws op; bitmap strikes as image
+    # rects (K6)
+    "color_glyphs": ("color_glyphs", "area",
+                     ("flatten", "expand_touches", "coverage_area",
+                      "composite_over")),
+    "bitmap_glyphs": ("bitmap_glyphs", "area",
+                      ("flatten", "expand_touches", "coverage_area",
+                       "composite_src")),
+}
+# an emoji picker, as a chat client or an OS draws one: a DejaVu header
+# line over PICKER_ROWS x PICKER_COLS color glyphs at PICKER_PX (scaled by
+# size / TEXT_SIZE), cycling through the characters of the fonts the port
+# ships in assets/fonts/test/; with two fonts, each draws half the rows.
+# picker -> (font files, characters)
+PICKER_COLS, PICKER_ROWS, PICKER_PX = 8, 6, 96.0
+PICKER_HEADER = "Smileys & Emotion"
+PICKER_FONT_DIR = os.path.join(REPO, "vello_tpu_torch", "assets", "fonts",
+                               "test")
+PICKERS = {
+    "color_glyphs": (("ColrV1Paints.ttf",),
+                     "\U0001F600\U0001F60D\U0001F308\u2B50\u2764"
+                     "\U0001F389\U0001F31E\U0001F535\U0001F369"
+                     "\U0001F3AF"),
+    "bitmap_glyphs": (("CbdtStrikes.ttf", "SbixStrikes.ttf"),
+                      "\U0001F600\U0001F534\u2764\u2B50\U0001F7E9"
+                      "\U0001F315\U0001F3AF\U0001F536\U0001F30D"
+                      "\U0001F4A7"),
 }
 # text_scene(128.) against its golden tests/snapshots/text_scene.png, on
 # the base color of tests/test_torch_text.py
@@ -1565,10 +1606,40 @@ def run_mesh(Renderer, RenderParams, test_scenes):
     return raw_entry
 
 
+def picker_scene(vt, picker, size):
+    """The emoji picker ``picker`` of PICKERS at ``size`` square, built
+    through the public API of the package ``vt`` (the port here; its tests
+    pass the JAX package too): ``Scene.draw_glyphs`` of each row,
+    ``text.layout_text`` of the header."""
+    import importlib
+    text = importlib.import_module(f"{vt.__name__}.text")
+    files, chars = PICKERS[picker]
+    k = size / TEXT_SIZE
+    s = vt.Scene()
+    header = text.default_font()
+    (s.draw_glyphs(header).font_size(22.0 * k).brush(vt.palette.WHITE)
+     .draw(vt.Fill.NON_ZERO, text.layout_text(
+         header, 22.0 * k, PICKER_HEADER, (16.0 * k, 40.0 * k))))
+    fonts = [text.Font(os.path.join(PICKER_FONT_DIR, f)) for f in files]
+    px, top = PICKER_PX * k, 64.0 * k
+    pitch_x, pitch_y = size / PICKER_COLS, (size - top) / PICKER_ROWS
+    for row in range(PICKER_ROWS):
+        font = fonts[row * len(fonts) // PICKER_ROWS]
+        glyphs = [text.Glyph(
+            font.glyph_id(chars[(row * PICKER_COLS + col) % len(chars)]),
+            col * pitch_x + (pitch_x - px) / 2, top + row * pitch_y
+            + 0.88 * px) for col in range(PICKER_COLS)]
+        s.draw_glyphs(font).font_size(px).draw(vt.Fill.NON_ZERO, glyphs)
+    return s
+
+
 def text_cell_scene(test_scenes, scene_name, size):
     """A phase 9 scene at ``size``: text_heavy with 40 lines at TEXT_SIZE
-    (its defaults) and 20 below, text_scene, or glyph_runs (raster for
-    glyph_raster)."""
+    (its defaults) and 20 below, text_scene, glyph_runs (raster for
+    glyph_raster), or an emoji picker."""
+    if scene_name in PICKERS:
+        import vello_tpu_torch
+        return picker_scene(vello_tpu_torch, scene_name, float(size))
     if scene_name == "text_heavy":
         return test_scenes.text_heavy(float(size),
                                       lines=40 if size >= TEXT_SIZE else 20)
@@ -1583,9 +1654,10 @@ def run_text_cell(cell, kernels, Renderer, RenderParams, resolve,
     """One phase 9 cell at TEXT_SIZE through Renderer(device="cuda"): the
     host's tier, no retry, overflow 0, its kernels' launches; first-frame
     s, warm ms, Renderer.profile's stages, device ms, peak GB, the scene's
-    build and resolve s; the frame within ORACLE_MEAN_TOL of the port's
-    oracle. Returns its numbers."""
-    from vello_tpu_torch.oracle import OracleRenderer
+    build and resolve s; a picker's K7 or K6 held to its plain version.
+    Returns its numbers and its f32 frame (held to the oracle by
+    ``run_text``)."""
+    from vello_tpu_torch.pipeline import layered
     from vello_tpu_torch.utils.profile import profile_stages
     scene_name, aa, used = TEXT_CELLS[cell]
     t0 = time.perf_counter()
@@ -1598,8 +1670,16 @@ def run_text_cell(cell, kernels, Renderer, RenderParams, resolve,
     resolve_s = time.perf_counter() - t0
     want_tier = rs.capacities(params).key()
     n_paths, n_segs = rs.n_paths, rs.n_segs
-    del rs
     expected = {name: int(name in used) for name in kernels.launches}
+    is_layered = "composite_over" in used
+    if is_layered:
+        # K7 once per draws op with a non-empty path range
+        plan = layered.build_layer_plan(rs)[1]
+        expected["composite_over"] = layered.nonempty_draws(plan)
+        ops = plan["op_tab"][:, 0]
+        pushes = int((ops == layered.OP_PUSH).sum())
+        pops = int((ops == layered.OP_POP).sum())
+    del rs
     r = Renderer(device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1618,6 +1698,8 @@ def run_text_cell(cell, kernels, Renderer, RenderParams, resolve,
                                                         want_tier)):
         fail(f"[{cell}] tier {prof['tier']} / retries {prof['retries']}: "
              f"expected the host's tier {want_tier} and no retry")
+    if prof["layered"] != is_layered:
+        fail(f"[{cell}] layered {prof['layered']}")
     if launches != expected:
         fail(f"[{cell}] launches {launches} in one frame, expected "
              f"{expected}")
@@ -1639,34 +1721,91 @@ def run_text_cell(cell, kernels, Renderer, RenderParams, resolve,
     in_frame = check_stages(cell, stages, r.last_profile["kernels"], used,
                             launches)
     device_ms = profile_stages(frame)["_total"]
-    # the oracle renders msaa by supersampling (centers on a 4x4 grid for
-    # msaa16), not by the 16-sample mask: an msaa cell takes the bar of the
-    # two, SAMPLE_MASK_MEAN (phase 3), an area cell the corpus bar
-    bar = ORACLE_MEAN_TOL if aa == "area" else SAMPLE_MASK_MEAN
-    t0 = time.perf_counter()
-    omean = float(np.abs(img - OracleRenderer().render(scene, params))
-                  .mean())
-    oracle_s = time.perf_counter() - t0
     print(f"[{cell}] warm_ms_per_frame median {warm:.3f} min "
           f"{min(times):.3f} max {max(times):.3f} over {WARM_FRAMES} frames; "
           f"device_ms_per_frame {device_ms:.4f} busy share "
-          f"{device_ms / warm:.3f}; peak_mem_gb {peak_gb:.2f}; oracle mean "
-          f"abs {omean} (bar {bar}, the oracle {oracle_s:.1f} s)")
+          f"{device_ms / warm:.3f}; peak_mem_gb {peak_gb:.2f}")
     print(f"[{cell}] Renderer.profile device ms per frame: "
           + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
           + "; in-frame kernel ms per launch "
           + ", ".join(f"{k} {v:.4f}" for k, v in in_frame.items()))
-    if not omean < bar:
-        fail(f"[{cell}] mean abs {omean} against the port's oracle, bar "
-             f"{bar}")
-    return {"aa": aa, "build_s": build_s, "resolve_s": resolve_s,
+    extra = {}
+    if is_layered:
+        # the pops (library torch), and K7: its largest draws op against
+        # its plain version, its launches in the frame against the sum of
+        # their bounds
+        pops_ms = stages.get("s22_op_pop", 0.0)
+        (kargs, _), bound_ms = capture_largest_over(kernels, frame)
+        err = hold_exact(cell, "composite_over", kernels.composite_over,
+                         kernels.composite_over_plain, kargs)
+        k7_ms = in_frame["composite_over"] * launches["composite_over"]
+        print(f"[{cell}] pushes {pushes} pops {pops}: the pops "
+              f"{pops_ms:.4f} device ms per frame "
+              f"({pops_ms / max(pops, 1):.4f} a pop, "
+              f"{pops_ms / stages['_total']:.3f} of the frame); "
+              f"composite_over: the largest draws op ({tuple(kargs[0].shape)}"
+              f" src) max abs err {err} against its plain version; "
+              f"{launches['composite_over']} launches, profiled kernel ms "
+              f"per frame {k7_ms:.4f}, the sum of their bounds "
+              f"{bound_ms:.4f} ms, share {bound_ms / k7_ms:.3f}")
+        extra = {"pushes": pushes, "pops": pops, "pops_ms": pops_ms,
+                 "composite_over": {"max_abs_err": err,
+                                    "in_frame_ms": k7_ms,
+                                    "bound_ms": bound_ms}}
+    elif "composite_src" in used and cell in PICKERS:
+        (kargs, kw), = capture_calls(kernels, frame,
+                                     ["composite_src"]).values()
+        err = hold_exact(cell, "composite_src", kernels.composite_src,
+                         kernels.composite_src_plain, kargs, kw)
+        bound_ms = bound("composite_src", kargs,
+                         kernels.composite_src(*kargs, **kw))[0]
+        print(f"[{cell}] composite_src: max abs err {err} against its plain "
+              f"version on {tuple(kargs[0].shape)} src; in frame "
+              f"{in_frame['composite_src']:.4f} ms, bound {bound_ms:.4f} ms")
+        extra = {"composite_src": {"max_abs_err": err,
+                                   "in_frame_ms": in_frame["composite_src"],
+                                   "bound_ms": bound_ms}}
+    return {**extra, "aa": aa, "build_s": build_s, "resolve_s": resolve_s,
             "paths": n_paths, "segments": n_segs, "first_frame_s": first_s,
             "tier": prof["tier"], "launches": {k: v for k, v in
                                                launches.items() if v},
             "warm_ms": [warm, min(times), max(times)], "peak_gb": peak_gb,
             "device_ms": device_ms, "busy": device_ms / warm,
-            "profile_stages_ms": stages, "in_frame_ms_per_launch": in_frame,
-            "oracle_mean_abs": omean}
+            "profile_stages_ms": stages,
+            "in_frame_ms_per_launch": in_frame}, img
+
+
+def oracle_frame(cell, size):
+    """The port's oracle frame of a phase 9 cell at ``size`` square and its
+    seconds, in a worker process of ``run_text`` that refuses the font
+    packages before it imports the port."""
+    for name in TEXT_PACKAGES:
+        sys.modules[name] = None
+    from vello_tpu_torch import RenderParams
+    from vello_tpu_torch.oracle import OracleRenderer
+    from vello_tpu_torch.scenes import test_scenes
+    scene_name, aa, _ = TEXT_CELLS[cell]
+    t0 = time.perf_counter()
+    img = OracleRenderer().render(
+        text_cell_scene(test_scenes, scene_name, size),
+        RenderParams(size, size, base_color=BASE, antialiasing=aa))
+    return img, time.perf_counter() - t0
+
+
+def hold_exact(cell, name, kfn, pfn, kargs, kw=None) -> float:
+    """A kernel's call from a phase 9 frame against its plain version on
+    the same inputs (K7 on a copy of its buffer each): equal, or fail.
+    Returns the max abs error (0.0)."""
+    kw = kw or {}
+    got = kfn(*fresh_args(name, kargs), **kw)
+    ref = pfn(*fresh_args(name, kargs), **kw)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max()) if got.numel() \
+        else 0.0
+    if got.shape != ref.shape or err != 0.0:
+        fail(f"[{cell}] {name}: max abs err {err} against its plain "
+             f"version (expected 0: the same arithmetic in the same order)")
+    return err
 
 
 def run_text(kernels, Renderer, RenderParams, resolve):
@@ -1679,9 +1818,37 @@ def run_text(kernels, Renderer, RenderParams, resolve):
     font = default_font()
     print(f"[text] default font {os.path.relpath(font.path, REPO)}: "
           f"{font.sfnt.num_glyphs} glyphs, {len(font._cmap)} code points")
-    cells = {cell: run_text_cell(cell, kernels, Renderer, RenderParams,
-                                 resolve, test_scenes)
-             for cell in TEXT_CELLS}
+    cells, frames = {}, {}
+    for cell in TEXT_CELLS:
+        cells[cell], frames[cell] = run_text_cell(
+            cell, kernels, Renderer, RenderParams, resolve, test_scenes)
+    # each cell's frame against the port's oracle, the oracles in parallel
+    # processes after the timed frames (which share no host time with
+    # them); the oracle renders msaa by supersampling (centers on a 4x4
+    # grid for msaa16), not by the 16-sample mask: an msaa cell takes the
+    # bar of the two, SAMPLE_MASK_MEAN (phase 3), an area cell the corpus
+    # bar
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    t0 = time.perf_counter()
+    workers = min(len(TEXT_CELLS), os.cpu_count() or 1)
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        oracles = dict(zip(TEXT_CELLS, pool.map(
+            oracle_frame, TEXT_CELLS, [TEXT_SIZE] * len(TEXT_CELLS))))
+    print(f"[text] the port's oracle frames of the {len(TEXT_CELLS)} cells "
+          f"in {time.perf_counter() - t0:.1f} s ({workers} processes)")
+    for cell, (ref, oracle_s) in oracles.items():
+        bar = ORACLE_MEAN_TOL if TEXT_CELLS[cell][1] == "area" \
+            else SAMPLE_MASK_MEAN
+        omean = float(np.abs(frames[cell] - ref).mean())
+        cells[cell]["oracle_mean_abs"] = omean
+        print(f"[{cell}] oracle mean abs {omean} (bar {bar}, the oracle "
+              f"{oracle_s:.1f} s)")
+        if not omean < bar:
+            fail(f"[{cell}] mean abs {omean} against the port's oracle, bar "
+                 f"{bar}")
+    del frames, oracles
     n = TEXT_CHECK_SIZE
     for cell, (scene_name, aa, _) in TEXT_CELLS.items():
         scene = text_cell_scene(test_scenes, scene_name, n)

@@ -746,3 +746,43 @@ def test_gpu_text_frames_equal_cpu_frames(cuda, scene, composite, aa):
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     diff = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
     assert diff.max() <= 1, int(diff.max())
+
+
+@pytest.mark.parametrize("kind", ["colr_v1", "bitmap"])
+def test_gpu_color_glyph_frames_equal_cpu_frames(cuda, kind):
+    """A COLR v1 glyph (sfnt.py's paint graph: clip and blend layers, K7
+    once per non-empty draws op) and a bitmap glyph (a CBDT PNG decoded by
+    utils.png.decode_png, an image rect: K6) of the fonts in
+    assets/fonts/test/ on the card, in area: the frame within 1 u8 level
+    of the CPU frame."""
+    import os
+
+    from vello_tpu_torch import Affine, Fill, Scene
+    from vello_tpu_torch.text import FONT_DIR, Font, Glyph
+    name = "ColrV1Paints.ttf" if kind == "colr_v1" else "CbdtStrikes.ttf"
+    font = Font(os.path.join(FONT_DIR, "test", name))
+    gid = font.glyph_id("❤" if kind == "bitmap" else "\U0001F3AF")
+    if kind == "bitmap":
+        img, _, _, ppem = font.bitmap_glyph(gid)
+        assert img.data.shape == (48, 48, 4) and ppem == 48.0
+    s = Scene()
+    (s.draw_glyphs(font).font_size(96.0).transform(Affine.translate(0.5, 0))
+     .draw(Fill.NON_ZERO, [Glyph(gid, 16.0, 100.0)]))
+    params = RenderParams(128, 128, base_color=(0.1, 0.1, 0.1, 1.0))
+    rs = resolve(s.encoding, params)
+    want = {k: 0 for k in kernels.launches}
+    want.update(flatten=1, expand_touches=1, coverage_area=1)
+    if kind == "colr_v1":
+        want["composite_over"] = layered.nonempty_draws(
+            layered.build_layer_plan(rs)[1])
+        assert want["composite_over"] > 1
+    else:
+        want["composite_src"] = 1
+    kernels.reset_launches()
+    r = Renderer(device=cuda)
+    gpu = r.render_resolved(rs, params, out="rgba8")
+    assert dict(kernels.launches) == want, dict(kernels.launches)
+    assert r.last_profile["layered"] == (kind == "colr_v1")
+    cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
+    diff = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
+    assert diff.max() <= 1, int(diff.max())

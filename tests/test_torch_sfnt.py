@@ -12,7 +12,7 @@ matplotlib and PIL resolves ``text_heavy`` and the accented ``glyph_runs``
 to the JAX package's ResolvedScenes (fontTools' outlines), renders them on
 the CPU within 1 u8 level of the JAX package's frames, and raises
 ImportError, naming the ROADMAP item, for each feature still on a font
-package.
+package (variations, hinting), while a COLR v1 font draws.
 """
 
 import hashlib
@@ -317,12 +317,22 @@ def test_missing_default_font_raises_with_its_path(tmp_path, monkeypatch):
 
 
 def test_bitmap_strikes_without_pil_raise(monkeypatch):
-    pytest.importorskip("fontTools")
-    font = text.Font(text.DEFAULT_FONT)
-    font.has_bitmaps = True
+    """Bitmap strikes draw with PIL and fontTools refused: sfnt.py reads
+    CBLC/CBDT and sbix, utils/png.py decodes their PNGs (nothing raises)."""
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(ImportError, match="ROADMAP.md item 26"):
-        font.bitmap_glyph(font.glyph_id("A"))
+    monkeypatch.setitem(sys.modules, "fontTools", None)
+    for name in ("CbdtStrikes.ttf", "SbixStrikes.ttf"):
+        font = text.Font(os.path.join(text.FONT_DIR, "test", name))
+        assert font.has_bitmaps
+        img, _, _, ppem = font.bitmap_glyph(font.glyph_id("\u2764"))
+        assert img.data.shape == (48, 48, 4) and ppem == 48.0
+        assert img.data[..., 3].max() == 255
+        s = vello_tpu_torch.Scene()
+        (s.draw_glyphs(font).font_size(48.0).draw(
+            vello_tpu_torch.Fill.NON_ZERO,
+            text.layout_text(font, 48.0, "\u2764\u2b50", (0.0, 48.0))))
+        assert s.encoding.n_paths == 2
+        assert font._tt is None
 
 
 _FONT_IMPORT = re.compile(
@@ -332,9 +342,9 @@ _FONT_IMPORT = re.compile(
 
 def test_font_packages_imported_only_inside_queued_features():
     """In the port and chip_smoke.py, a font package is imported only
-    inside a function (never at module level), and only in text.py and
-    colr.py, where each such import serves a feature of
-    ``text.FONT_PACKAGE_FEATURES``."""
+    inside a function (never at module level), and only in text.py, where
+    each such import serves a feature of ``text.FONT_PACKAGE_FEATURES``;
+    colr.py imports none."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "vello_tpu_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -346,11 +356,9 @@ def test_font_packages_imported_only_inside_queued_features():
                               len(m.group(1))))
     assert {(p, pkg) for p, pkg, _ in found} == {
         ("vello_tpu_torch/text.py", "fontTools"),
-        ("vello_tpu_torch/text.py", "PIL"),
-        ("vello_tpu_torch/colr.py", "PIL")}, found
+        ("vello_tpu_torch/text.py", "PIL")}, found
     assert all(indent > 0 for _, _, indent in found), found
-    assert set(text.FONT_PACKAGE_FEATURES) == {
-        "variations", "colr_v1", "bitmaps", "hinting", "cff"}
+    assert set(text.FONT_PACKAGE_FEATURES) == {"variations", "hinting", "cff"}
 
 
 _BLOCKED = """
@@ -490,11 +498,12 @@ def test_blocked_text_frame_near_jax(blocked, name):
 
 
 def test_blocked_features_raise_naming_their_item(blocked):
+    """Hinting and variable fonts raise, naming their item; a COLR v1 font
+    draws (sfnt.py reads its paint graph)."""
     errors = blocked["errors"]
-    assert set(errors) == {"hinting", "variations", "colr_v1"}, errors
+    assert set(errors) == {"hinting", "variations"}, errors
     for feature, item, package in (("hinting", 27, "PIL"),
-                                   ("variations", 24, "fontTools"),
-                                   ("colr_v1", 25, "fontTools")):
+                                   ("variations", 24, "fontTools")):
         assert f"ROADMAP.md item {item}" in errors[feature], errors[feature]
         assert package in errors[feature], errors[feature]
     # nothing of the three packages, of JAX or of the JAX package loaded

@@ -9,25 +9,25 @@ glyph and emitted as ordinary scene ops — fills, gradients, clip layers
 blend layers for composite modes.
 
 All coordinates stay in glyph space (y-up font units); the caller's
-glyph transform maps them to device space. Both still read the font
-through fontTools, and bitmaps decode through PIL (ROADMAP items 25 and
-26): without them, a font with COLR v1 or bitmap strikes raises
-ImportError when a run draws with it.
+glyph transform maps them to device space. Both read the font through the
+port's own ``sfnt.py`` (the paint records under fontTools' field names,
+glyphs by id) and decode PNGs with ``utils.png.decode_png``: no font or
+image package.
 """
 
 from __future__ import annotations
 
-import io
 import math
 from typing import Optional
-
-import numpy as np
 
 from .kurbo import Affine, BezPath, rect_path
 from .peniko import (BlendMode, Color, Compose, Extend, Fill, Gradient,
                      Image, ImageQuality, Mix, stops)
+from .utils.png import decode_png
 
 # OT CompositeMode -> (Mix, Compose); unlisted modes fall back to src-over
+# (the JAX package's map, with OpenType's modes 5-9 mismatched: kept, so
+# that the scenes match; ROADMAP §3)
 _COMPOSITE_MAP = {
     3: (Mix.NORMAL, Compose.SRC_OVER),
     6: (Mix.NORMAL, Compose.SRC_IN),
@@ -60,27 +60,25 @@ class ColrV1:
 
     def __init__(self, font):
         self.font = font
-        tt = self.tt = font.fonttools("colr_v1")
-        self.table = tt["COLR"].table
-        self.palettes = tt["CPAL"].palettes
-        self.base = {r.BaseGlyph: r.Paint
-                     for r in self.table.BaseGlyphList.BaseGlyphPaintRecord}
-        self.layers = (self.table.LayerList.Paint
-                       if self.table.LayerList else [])
-        head = tt["head"]
-        self.bbox = (head.xMin, head.yMin, head.xMax, head.yMax)
+        table = font.sfnt.colr_v1()
+        self.palettes = font.sfnt.palettes()
+        self.base = table.base          # glyph id -> root paint
+        self.layers = table.layers
+        self.bbox = font.sfnt.bbox
 
     def has_glyph(self, gid: int) -> bool:
-        return self.tt.getGlyphName(gid) in self.base
+        return gid in self.base
 
     def _color(self, palette_ix: int, alpha: float,
                foreground: Color) -> Color:
         if palette_ix == 0xFFFF:
             c = foreground
         else:
-            p = self.palettes[0][palette_ix]
-            c = Color(p.red / 255.0, p.green / 255.0, p.blue / 255.0,
-                      p.alpha / 255.0)
+            if palette_ix >= len(self.palettes[0]):
+                raise ValueError(f"COLR: palette index {palette_ix} past "
+                                 f"CPAL's {len(self.palettes[0])} entries")
+            r, g, b, a = self.palettes[0][palette_ix]
+            c = Color(r / 255.0, g / 255.0, b / 255.0, a / 255.0)
         return c.multiply_alpha(alpha)
 
     def _stops(self, color_line, foreground: Color):
@@ -97,7 +95,7 @@ class ColrV1:
              foreground: Color) -> bool:
         """Emit the glyph's paint graph into the scene. transform maps
         glyph space (font units, y-up) to device space."""
-        paint = self.base.get(self.tt.getGlyphName(gid))
+        paint = self.base.get(gid)
         if paint is None:
             return False
         # whole-glyph clip so unbounded fills never leak
@@ -139,8 +137,7 @@ class ColrV1:
             scene.fill(Fill.NON_ZERO, t, g, None, self._fill_rect())
         elif f == 10:   # PaintGlyph: clip to outline
             from .text import _GLOBAL_CACHE
-            ggid = self.tt.getGlyphID(p.Glyph)
-            outline = _GLOBAL_CACHE.outline(self.font, ggid)
+            outline = _GLOBAL_CACHE.outline(self.font, p.Glyph)
             if outline.is_empty():
                 return
             scene.push_clip_layer(t, outline)
@@ -212,39 +209,30 @@ def bitmap_glyph(font, gid: int):
 
     Returns (Image rgba8, bearing_x_px, bearing_y_px, ppem) or None.
     bearing_y is the distance from the baseline UP to the bitmap top
-    (pixels at the strike's ppem)."""
-    from .text import package_missing
-    tt = font.fonttools("bitmaps")
-    try:
-        from PIL import Image as PILImage
-    except ImportError as e:
-        raise package_missing("bitmaps") from e
-    name = tt.getGlyphName(gid)
-    if "CBLC" in tt and "CBDT" in tt:
-        strikes = tt["CBLC"].strikes
-        best = max(range(len(strikes)),
-                   key=lambda i: strikes[i].bitmapSizeTable.ppemY)
-        data = tt["CBDT"].strikeData[best].get(name)
-        if data is not None:
-            data.ensureDecompiled()
-            png = getattr(data, "imageData", None)
-            if png:
-                im = PILImage.open(io.BytesIO(png)).convert("RGBA")
-                m = data.metrics
-                img = Image(data=np.asarray(im, dtype=np.uint8),
-                            quality=ImageQuality.MEDIUM)
-                return (img, float(m.BearingX), float(m.BearingY),
-                        float(strikes[best].bitmapSizeTable.ppemY))
-    if "sbix" in tt:
-        sb = tt["sbix"]
-        ppems = sorted(sb.strikes)
-        for ppem in reversed(ppems):
-            g = sb.strikes[ppem].glyphs.get(name)
-            if g is not None and g.graphicType == "png " and g.imageData:
-                im = PILImage.open(io.BytesIO(g.imageData)).convert("RGBA")
-                arr = np.asarray(im, dtype=np.uint8)
+    (pixels at the strike's ppem). The strike is the JAX package's choice:
+    CBLC's largest ppemY (the first of equals), then sbix's largest ppem
+    with a ``png `` record. A CBDT glyph's bearings are the horizontal ones
+    of either metrics record (the JAX package reads ``BearingX``, which
+    only format 17's small metrics have: ROADMAP §3)."""
+    sfnt = font.sfnt
+    if "CBLC" in sfnt.tables and "CBDT" in sfnt.tables:
+        strikes = sfnt.cbdt_strikes()
+        best = max(range(len(strikes)), key=lambda i: strikes[i].ppem_y)
+        data = sfnt.cbdt_glyph(strikes[best], gid)
+        if data is not None and data.png:
+            _, _, bearing_x, bearing_y, _ = data.metrics
+            img = Image(data=decode_png(data.png),
+                        quality=ImageQuality.MEDIUM)
+            return (img, float(bearing_x), float(bearing_y),
+                    float(strikes[best].ppem_y))
+    if "sbix" in sfnt.tables:
+        strikes = sfnt.sbix_strikes()
+        for ppem in sorted(strikes, reverse=True):
+            g = strikes[ppem].get(gid)
+            if g is not None and g.graphic_type == "png " and g.data:
+                arr = decode_png(g.data)
                 img = Image(data=arr, quality=ImageQuality.MEDIUM)
                 # sbix draws from the glyph origin; originOffset in pixels
-                return (img, float(g.originOffsetX),
-                        float(arr.shape[0] + g.originOffsetY), float(ppem))
+                return (img, float(g.origin_x),
+                        float(arr.shape[0] + g.origin_y), float(ppem))
     return None

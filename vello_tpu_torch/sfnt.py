@@ -4,9 +4,18 @@ The tables the outline path needs: the table directory, ``head``
 (unitsPerEm, indexToLocFormat), ``hhea`` (ascent, descent, lineGap,
 numberOfHMetrics), ``maxp`` (numGlyphs), ``hmtx``, ``loca``, ``cmap``
 (formats 4 and 12, the subtable chosen in fontTools' ``getBestCmap``
-order), ``glyf`` (simple and composite glyphs) and COLR v0 with CPAL. This
-is the job fontTools does for ``vello_tpu`` and ``skrifa`` for the
-reference (SURVEY.md §1 L0).
+order), ``glyf`` (simple and composite glyphs), COLR v0 and v1 with CPAL,
+and the bitmap strikes of CBLC/CBDT and sbix. This is the job fontTools
+does for ``vello_tpu`` and ``skrifa`` for the reference (SURVEY.md §1 L0).
+
+COLR v1 paints (``ColrV1Table``) carry fontTools' field names and the
+Python values fontTools decodes (F2Dot14 ``v / 16384``, Fixed ``v /
+65536``, angles ``(v / 16384 + bias) * 180`` with a bias of 1.0 for a
+sweep's start and end), so that ``colr.ColrV1`` builds the same scene ops
+from either reader; glyphs are named by id. The Var formats are read at
+their default values: their VarIndexBase is skipped, as the JAX package
+skips it. Malformed data (an offset outside its table, an unknown format)
+raises ValueError.
 
 ``SfntFont.draw`` sends a glyph's contours to a segment pen (``moveTo``,
 ``lineTo``, ``qCurveTo``, ``curveTo``, ``closePath``) with the same points,
@@ -223,9 +232,15 @@ class SfntFont:
             self.glyf = self.table("glyf")
         else:
             self.loca = None
+        # head's xMin, yMin, xMax, yMax, as the file holds them
+        self.bbox = struct.unpack_from(">hhhh", head, 36)
         self.colr_version = (struct.unpack_from(">H", self.table("COLR"), 0)[0]
                              if "COLR" in self.tables else None)
         self._colr_v0 = None
+        self._colr_v1 = None
+        self._cbdt_strikes = None
+        self._cbdt = None
+        self._sbix_strikes = None
 
     def table(self, tag: str) -> bytes:
         if tag not in self.tables:
@@ -399,6 +414,43 @@ class SfntFont:
         rgba = bgra[:, [2, 1, 0, 3]].tolist()
         return [[tuple(c) for c in rgba[f:f + n_entries]] for f in firsts]
 
+    # -- COLR v1 ------------------------------------------------------------
+    def colr_v1(self) -> "ColrV1Table":
+        """The COLR v1 paint graph (read at first use)."""
+        if self.colr_version != 1:
+            raise ValueError(f"the font's COLR table is version "
+                             f"{self.colr_version}, not 1")
+        if self._colr_v1 is None:
+            self._colr_v1 = ColrV1Table(self.table("COLR"))
+        return self._colr_v1
+
+    # -- bitmap strikes -------------------------------------------------------
+    def cbdt_strikes(self) -> List["BitmapStrike"]:
+        """CBLC's strikes, in the table's order, each with the CBDT
+        location of every glyph its index subtables hold."""
+        if self._cbdt_strikes is None:
+            self._cbdt_strikes = _read_cblc(self.table("CBLC"))
+        return self._cbdt_strikes
+
+    def cbdt_glyph(self, strike: "BitmapStrike",
+                   gid: int) -> Optional["BitmapGlyph"]:
+        """Glyph ``gid`` of a CBLC strike from CBDT, or None when the strike
+        has no image for it."""
+        loc = strike.glyphs.get(gid)
+        if loc is None:
+            return None
+        if self._cbdt is None:          # read once: emoji CBDTs are MBs
+            self._cbdt = self.table("CBDT")
+        return _read_cbdt_glyph(self._cbdt, *loc)
+
+    def sbix_strikes(self) -> Dict[int, Dict[int, "SbixGlyph"]]:
+        """sbix's strikes: ppem -> {glyph id: its glyph data record}, the
+        glyphs with an empty record left out."""
+        if self._sbix_strikes is None:
+            self._sbix_strikes = _read_sbix(self.table("sbix"),
+                                            self.num_glyphs)
+        return self._sbix_strikes
+
 
 def _cmap_format_4(cmap: bytes, offset: int) -> Dict[int, int]:
     seg_count = struct.unpack_from(">H", cmap, offset + 6)[0] // 2
@@ -514,3 +566,348 @@ def _parse_components(buf: bytes) -> List[Component]:
         out.append(Component(gid, flags, matrix, tuple(args)))
         more = bool(flags & MORE_COMPONENTS)
     return out
+
+
+# -- COLR v1 ---------------------------------------------------------------
+
+class _Reader:
+    """Bounds-checked big-endian reads from one table (``name`` for its
+    errors)."""
+
+    def __init__(self, name: str, data: bytes):
+        self.name = name
+        self.data = data
+
+    def unpack(self, fmt: str, offset: int) -> tuple:
+        size = struct.calcsize(fmt)
+        if offset < 0 or offset + size > len(self.data):
+            raise ValueError(f"{self.name}: {size} bytes at offset {offset} "
+                             f"lie outside the table ({len(self.data)} "
+                             f"bytes)")
+        return struct.unpack_from(fmt, self.data, offset)
+
+    def offset24(self, offset: int) -> int:
+        hi, lo = self.unpack(">BH", offset)
+        return hi << 16 | lo
+
+
+@dataclass
+class ColorStop:
+    StopOffset: float
+    PaletteIndex: int
+    Alpha: float
+
+
+@dataclass
+class ColorLine:
+    Extend: int
+    ColorStop: List[ColorStop]
+
+
+@dataclass
+class Affine2x3:
+    xx: float
+    yx: float
+    xy: float
+    yy: float
+    dx: float
+    dy: float
+
+
+def _angle(v: int, bias: float = 0.0) -> float:
+    return (v / 16384 + bias) * 180
+
+
+# value kind -> (struct code, decode)
+_SCALARS = {
+    "u8": (">B", int), "u16": (">H", int), "u32": (">L", int),
+    "fword": (">h", int), "ufword": (">H", int), "glyph": (">H", int),
+    "f2dot14": (">h", _f2dot14), "angle": (">h", _angle),
+    "biased_angle": (">h", lambda v: _angle(v, 1.0)),
+}
+# what an Offset24 field points to
+_CHILD_KINDS = ("paint", "line", "var_line", "affine", "var_affine")
+
+# the static paint formats: format -> its fields after the format byte,
+# (fontTools' name, kind), in the order the table holds them
+_PAINT_FIELDS = {
+    1: (("NumLayers", "u8"), ("FirstLayerIndex", "u32")),
+    2: (("PaletteIndex", "u16"), ("Alpha", "f2dot14")),
+    4: (("ColorLine", "line"), ("x0", "fword"), ("y0", "fword"),
+        ("x1", "fword"), ("y1", "fword"), ("x2", "fword"), ("y2", "fword")),
+    6: (("ColorLine", "line"), ("x0", "fword"), ("y0", "fword"),
+        ("r0", "ufword"), ("x1", "fword"), ("y1", "fword"),
+        ("r1", "ufword")),
+    8: (("ColorLine", "line"), ("centerX", "fword"), ("centerY", "fword"),
+        ("startAngle", "biased_angle"), ("endAngle", "biased_angle")),
+    10: (("Paint", "paint"), ("Glyph", "glyph")),
+    11: (("Glyph", "glyph"),),
+    12: (("Paint", "paint"), ("Transform", "affine")),
+    14: (("Paint", "paint"), ("dx", "fword"), ("dy", "fword")),
+    16: (("Paint", "paint"), ("scaleX", "f2dot14"), ("scaleY", "f2dot14")),
+    18: (("Paint", "paint"), ("scaleX", "f2dot14"), ("scaleY", "f2dot14"),
+         ("centerX", "fword"), ("centerY", "fword")),
+    20: (("Paint", "paint"), ("scale", "f2dot14")),
+    22: (("Paint", "paint"), ("scale", "f2dot14"), ("centerX", "fword"),
+         ("centerY", "fword")),
+    24: (("Paint", "paint"), ("angle", "angle")),
+    26: (("Paint", "paint"), ("angle", "angle"), ("centerX", "fword"),
+         ("centerY", "fword")),
+    28: (("Paint", "paint"), ("xSkewAngle", "angle"),
+         ("ySkewAngle", "angle")),
+    30: (("Paint", "paint"), ("xSkewAngle", "angle"), ("ySkewAngle", "angle"),
+         ("centerX", "fword"), ("centerY", "fword")),
+    32: (("SourcePaint", "paint"), ("CompositeMode", "u8"),
+         ("BackdropPaint", "paint")),
+}
+# each Var format (the odd ones but 1 and 11), one past its static twin,
+# has the twin's fields with a VarColorLine or VarAffine2x3 in place of a
+# ColorLine or Affine2x3 and, but for PaintVarTransform (13), a trailing
+# VarIndexBase (read and skipped: its name is None)
+for _f in (3, 5, 7, 9, 13, 15, 17, 19, 21, 23, 25, 27, 29, 31):
+    _PAINT_FIELDS[_f] = tuple(
+        (name, {"line": "var_line", "affine": "var_affine"}.get(kind, kind))
+        for name, kind in _PAINT_FIELDS[_f - 1]) + (
+            () if _f == 13 else ((None, "u32"),))
+del _f
+
+
+class Paint:
+    """One COLR v1 paint table: ``Format`` and its fields under fontTools'
+    names and values. A child paint (``Paint``, ``SourcePaint``,
+    ``BackdropPaint``) is read when first asked for, so that a walk that
+    stops at its depth limit reads no deeper; ``field_names`` lists the
+    fields in table order."""
+
+    def __init__(self, table: "ColrV1Table", fmt: int, fields: dict,
+                 children: dict, names: tuple):
+        self.Format = fmt
+        self.__dict__.update(fields)
+        self._table = table
+        self._children = children       # name -> offset in the table
+        self.field_names = names
+
+    def __getattr__(self, name):
+        children = self.__dict__.get("_children", {})
+        if name in children:
+            return self._table.paint(children[name])
+        raise AttributeError(name)
+
+
+class ColrV1Table:
+    """A COLR v1 table: ``base`` (glyph id -> its root Paint, from the
+    BaseGlyphList) and ``layers`` (the LayerList's Paints). The ClipList,
+    VarIndexMap and ItemVariationStore offsets are read and not used."""
+
+    def __init__(self, colr: bytes):
+        self.r = _Reader("COLR", colr)
+        # the ClipList, VarIndexMap and ItemVariationStore offsets end the
+        # header; the Var paints are read at their defaults
+        (_, _, _, _, _, base_list, layer_list, _, _,
+         _) = self.r.unpack(">HHLLHLLLLL", 0)
+        self._paints: Dict[int, Paint] = {}
+        self.layers: List[Paint] = []
+        if layer_list:
+            (n,) = self.r.unpack(">L", layer_list)
+            offsets = self.r.unpack(f">{n}L", layer_list + 4)
+            self.layers = [self.paint(layer_list + o) for o in offsets]
+        self.base: Dict[int, Paint] = {}
+        if base_list:
+            (n,) = self.r.unpack(">L", base_list)
+            for i in range(n):
+                gid, offset = self.r.unpack(">HL", base_list + 4 + 6 * i)
+                self.base[gid] = self.paint(base_list + offset)
+        for p in self._paints.values():
+            if p.Format == 1 and (p.FirstLayerIndex + p.NumLayers
+                                  > len(self.layers)):
+                raise ValueError(
+                    f"COLR: PaintColrLayers takes layers "
+                    f"{p.FirstLayerIndex}..{p.FirstLayerIndex + p.NumLayers}"
+                    f" of a LayerList of {len(self.layers)}")
+
+    def paint(self, offset: int) -> Paint:
+        """The paint table at ``offset`` in COLR (read once)."""
+        got = self._paints.get(offset)
+        if got is None:
+            got = self._paints[offset] = self._read_paint(offset)
+        return got
+
+    def _read_paint(self, offset: int) -> Paint:
+        (fmt,) = self.r.unpack(">B", offset)
+        spec = _PAINT_FIELDS.get(fmt)
+        if spec is None:
+            raise ValueError(f"COLR: paint format {fmt} at offset {offset} "
+                             f"is not one of 1-32")
+        fields, children = {}, {}
+        pos = offset + 1
+        for name, kind in spec:
+            if kind in _CHILD_KINDS:
+                child = self.r.offset24(pos)
+                pos += 3
+                if not child:
+                    raise ValueError(f"COLR: paint format {fmt} at offset "
+                                     f"{offset} has a null {name}")
+                if kind == "paint":
+                    children[name] = offset + child
+                elif kind in ("line", "var_line"):
+                    fields[name] = self._color_line(offset + child,
+                                                    kind == "var_line")
+                else:
+                    fields[name] = Affine2x3(*(
+                        v / 65536 for v in self.r.unpack(">6l",
+                                                         offset + child)))
+                    if kind == "var_affine":
+                        self.r.unpack(">L", offset + child + 24)
+                continue
+            code, decode = _SCALARS[kind]
+            (v,) = self.r.unpack(code, pos)
+            pos += struct.calcsize(code)
+            if name is not None:
+                fields[name] = decode(v)
+        names = tuple(name for name, _ in spec if name is not None)
+        return Paint(self, fmt, fields, children, names)
+
+    def _color_line(self, offset: int, var: bool) -> ColorLine:
+        extend, n = self.r.unpack(">BH", offset)
+        size = 10 if var else 6
+        stops = []
+        for i in range(n):
+            stop, index, alpha = self.r.unpack(">hHh",
+                                               offset + 3 + size * i)
+            if var:
+                self.r.unpack(">L", offset + 3 + size * i + 6)
+            stops.append(ColorStop(_f2dot14(stop), index, _f2dot14(alpha)))
+        return ColorLine(extend, stops)
+
+
+# -- bitmap strikes (CBLC/CBDT, sbix) ----------------------------------------
+
+# glyph metrics records: height, width, bearing x, bearing y, advance (the
+# horizontal part of BigGlyphMetrics, whose vertical part follows)
+SMALL_METRICS = ">BBbbB"
+BIG_METRICS = ">BBbbBbbB"
+
+
+@dataclass
+class BitmapStrike:
+    ppem_x: int
+    ppem_y: int
+    # glyph id -> (offset of its record in CBDT, its length, its image
+    # format, the BigGlyphMetrics of an index subtable of format 2 or 5)
+    glyphs: Dict[int, tuple]
+
+
+@dataclass
+class BitmapGlyph:
+    image_format: int           # 17, 18 or 19
+    # (height, width, bearing x, bearing y, advance), horizontal: the
+    # glyph's own metrics (17: small, 18: big) or, for 19, its index's
+    metrics: Tuple[int, int, int, int, int]
+    png: bytes
+
+
+@dataclass
+class SbixGlyph:
+    origin_x: int
+    origin_y: int
+    graphic_type: str
+    data: bytes
+
+
+def _read_cblc(cblc: bytes) -> List[BitmapStrike]:
+    r = _Reader("CBLC", cblc)
+    (n_sizes,) = r.unpack(">L", 4)
+    strikes = []
+    for i in range(n_sizes):
+        rec = 8 + 48 * i
+        array, _, n_subtables = r.unpack(">LLL", rec)
+        ppem_x, ppem_y = r.unpack(">BB", rec + 44)
+        glyphs: Dict[int, tuple] = {}
+        for k in range(n_subtables):
+            first, last, extra = r.unpack(">HHL", array + 8 * k)
+            sub = array + extra
+            index_format, image_format, data_offset = r.unpack(">HHL", sub)
+            if image_format not in (17, 18, 19):
+                raise ValueError(f"CBLC: image format {image_format} is not "
+                                 f"a CBDT PNG format (17, 18 or 19)")
+            n = last - first + 1
+            metrics = None
+            located = []                   # (glyph id, start, length)
+            if index_format in (1, 3):
+                offs = r.unpack(f">{n + 1}{'L' if index_format == 1 else 'H'}",
+                                sub + 8)
+                located = [(first + j, offs[j], offs[j + 1] - offs[j])
+                           for j in range(n)]
+            elif index_format in (2, 5):
+                (size,) = r.unpack(">L", sub + 8)
+                metrics = r.unpack(BIG_METRICS, sub + 12)[:5]
+                if index_format == 2:
+                    ids = range(first, last + 1)
+                else:
+                    (count,) = r.unpack(">L", sub + 20)
+                    ids = r.unpack(f">{count}H", sub + 24)
+                located = [(gid, size * j, size) for j, gid in enumerate(ids)]
+            elif index_format == 4:
+                (count,) = r.unpack(">L", sub + 8)
+                pairs = r.unpack(f">{2 * (count + 1)}H", sub + 12)
+                located = [(pairs[2 * j], pairs[2 * j + 1],
+                            pairs[2 * j + 3] - pairs[2 * j + 1])
+                           for j in range(count)]
+            else:
+                raise ValueError(f"CBLC: index subtable format "
+                                 f"{index_format} is not one of 1-5")
+            if image_format == 19 and metrics is None:
+                raise ValueError(f"CBLC: image format 19 under index format "
+                                 f"{index_format}, which holds no metrics")
+            for gid, start, length in located:
+                if length > 0:          # an empty record is no glyph
+                    glyphs[gid] = (data_offset + start, length, image_format,
+                                   metrics)
+        strikes.append(BitmapStrike(ppem_x, ppem_y, glyphs))
+    return strikes
+
+
+def _read_cbdt_glyph(cbdt: bytes, offset: int, length: int,
+                     image_format: int, index_metrics) -> BitmapGlyph:
+    r = _Reader("CBDT", cbdt)
+    r.unpack(f">{length}x", offset)
+    if image_format == 17:
+        metrics = r.unpack(SMALL_METRICS, offset)
+        pos = offset + 5
+    elif image_format == 18:
+        metrics = r.unpack(BIG_METRICS, offset)[:5]
+        pos = offset + 8
+    else:
+        metrics, pos = index_metrics, offset
+    (n,) = r.unpack(">L", pos)
+    if pos + 4 + n > offset + length:
+        raise ValueError(f"CBDT: a PNG of {n} bytes overruns its glyph "
+                         f"record of {length} bytes at offset {offset}")
+    return BitmapGlyph(image_format, tuple(metrics),
+                       cbdt[pos + 4:pos + 4 + n])
+
+
+def _read_sbix(sbix: bytes, num_glyphs: int) -> Dict[int, Dict[int,
+                                                              SbixGlyph]]:
+    r = _Reader("sbix", sbix)
+    (n_strikes,) = r.unpack(">L", 4)
+    strikes: Dict[int, Dict[int, SbixGlyph]] = {}
+    for offset in r.unpack(f">{n_strikes}L", 8):
+        ppem, _ = r.unpack(">HH", offset)
+        if ppem in strikes:
+            raise ValueError(f"sbix: two strikes of ppem {ppem}")
+        offs = r.unpack(f">{num_glyphs + 1}L", offset + 4)
+        glyphs = {}
+        for gid in range(num_glyphs):
+            start, end = offset + offs[gid], offset + offs[gid + 1]
+            if end == start:
+                continue
+            if end < start + 8:
+                raise ValueError(f"sbix: glyph {gid} of strike {ppem} has a "
+                                 f"record of {end - start} bytes")
+            ox, oy, tag = r.unpack(">hh4s", start)
+            r.unpack(f">{end - start}x", start)
+            glyphs[gid] = SbixGlyph(ox, oy, tag.decode("latin-1"),
+                                    sbix[start + 8:end])
+        strikes[ppem] = glyphs
+    return strikes

@@ -3,11 +3,12 @@
 Reference parity: ``vello::DrawGlyphs`` (``vello/src/scene.rs:487-893``), the
 glyph resolver + cache (``vello_encoding/src/glyph_cache.rs``, ``glifo``).
 The port reads its fonts itself (``sfnt.py``: metrics, cmap, glyf outlines,
-COLR v0 and CPAL), the job ``skrifa`` does for the reference (SURVEY.md §1
-L0), and ships its default font, DejaVu Sans, in ``assets/fonts/`` (its
-licence in ``LICENSE_DEJAVU`` there). A font package is imported only for
-the features in ``FONT_PACKAGE_FEATURES``, each queued in ROADMAP.md, and
-only when a font or a run asks for one. Outlines are cached per (font,
+COLR v0 and v1, CPAL, and the CBDT and sbix bitmap strikes, whose PNGs
+``utils/png.py`` decodes), the job ``skrifa`` does for the reference
+(SURVEY.md §1 L0), and ships its default font, DejaVu Sans, in
+``assets/fonts/`` (its licence in ``LICENSE_DEJAVU`` there). A font
+package is imported only for the features in ``FONT_PACKAGE_FEATURES``,
+each queued in ROADMAP.md, and only when a font or a run asks for one. Outlines are cached per (font,
 glyph-id) in font units — scaling happens through the affine transform, so
 one cache entry serves every size (the reference caches per size because
 of hinting, which we don't apply).
@@ -36,8 +37,6 @@ DEFAULT_FONT = os.path.join(FONT_DIR, "DejaVuSans.ttf")
 FONT_PACKAGE_FEATURES = {
     "variations": ("fontTools", "variable-font instancing (gvar, fvar, avar)",
                    24),
-    "colr_v1": ("fontTools", "the COLR v1 paint graph", 25),
-    "bitmaps": ("fontTools and PIL", "CBDT/sbix bitmap strikes", 26),
     "hinting": ("PIL", "hinting through FreeType", 27),
     "cff": ("fontTools", "CFF outlines", 28),
 }
@@ -47,13 +46,14 @@ def package_missing(feature: str) -> ImportError:
     """The error of a feature whose font package is not installed."""
     package, what, item = FONT_PACKAGE_FEATURES[feature]
     return ImportError(f"{what} needs {package}, which is not installed "
-                       f"(ROADMAP.md item {item}); outlines, metrics and COLR "
-                       f"v0 need no font package")
+                       f"(ROADMAP.md item {item}); outlines, metrics, COLR "
+                       f"and bitmap strikes need no font package")
 
 
 class Font:
     """A TrueType/OpenType font (the ``skrifa`` analog, SURVEY.md §1 L0):
-    metrics, cmap, glyf outlines and COLR v0 from ``sfnt.SfntFont``.
+    metrics, cmap, glyf outlines, COLR v0 and v1 and bitmap strikes from
+    ``sfnt.SfntFont``; a bitmap-only font (CBDT, no glyf) opens too.
 
     variations: optional {axis_tag: user value} for variable fonts — the
     skrifa ``LocationRef`` analog (vello/src/scene.rs DrawGlyphs
@@ -104,15 +104,12 @@ class Font:
     @property
     def tt(self):
         """fontTools' ``TTFont`` (lazy): read only by the features that are
-        still on fontTools."""
-        return self.fonttools("variations" if self.variations
-                              else "colr_v1" if self._has_colr_v1
-                              else "bitmaps" if self.has_bitmaps else "cff")
+        still on fontTools, variations and CFF outlines."""
+        return self.fonttools("variations" if self.variations else "cff")
 
     @property
     def glyph_order(self) -> List[str]:
-        """Glyph names (from fontTools: the COLR v1 and bitmap paths look
-        glyphs up by name)."""
+        """Glyph names, from fontTools (variations and CFF only)."""
         return self.tt.getGlyphOrder()
 
     def colr_v1(self):
