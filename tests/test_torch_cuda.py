@@ -709,15 +709,16 @@ def test_gpu_supersampled_frame_equals_cpu_frame(cuda, monkeypatch):
 
 def test_bench_headline_on_the_card(cuda):
     """The port bench's headline entry at 256x256 on the card: K1-K4 once
-    each in its first frame, a device time beside its wall time, and the
-    frame's bytes equal to the Renderer's of the same scene."""
+    each in its first frame, a wall time and no per-frame event time
+    (``device_ms`` is gone), and the frame's bytes equal to the
+    Renderer's of the same scene."""
     from vello_tpu_torch import bench
     cfg = bench.Settings(complexity=4, size=256, iters=2, batch=2,
                          cold=False)
     head = bench.headline(cfg, cuda)
     assert head.launches == {"flatten": 1, "expand_touches": 1,
                              "msaa_coverage": 1, "composite_solid": 1}
-    assert head.device_ms > 0 and head.frame_ms > 0
+    assert head.frame_ms > 0 and not hasattr(head, "device_ms")
     want = Renderer(device=cuda).render_u8(filled_mmark(4, 256.0),
                                            head.params)
     np.testing.assert_array_equal(head.img.cpu().numpy(), want)
@@ -786,3 +787,56 @@ def test_gpu_color_glyph_frames_equal_cpu_frames(cuda, kind):
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     diff = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
     assert diff.max() <= 1, int(diff.max())
+
+
+def test_frame_sync_counter_on_the_card(cuda):
+    """vt.frame's sync counter on the card: ``.item()``, ``int`` of a
+    tensor, ``nonzero``, a device-to-host copy and
+    ``torch.cuda.synchronize()`` count once each, under the stage open at
+    the time (vt.frame outside every stage); the sync-debug mode is off
+    again after the frame, and after one that raised. A real frame of the
+    Renderer counts the same whole number every time, and the kernel
+    library's load lies within its first frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vello_tpu_torch.utils.profile import (FRAME, RECORDER, frame_span,
+                                               stage)
+    x = torch.arange(8, device=cuda)
+    RECORDER.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with frame_span(True):
+            with stage("s01_tile_alloc"):
+                x.sum().item()
+                int(x[3])
+            with stage("s04_coarse_sort"):
+                torch.nonzero(x > 3)
+                x.cpu()
+            torch.cuda.synchronize()
+            x + 1
+        with pytest.raises(RuntimeError):
+            with frame_span(True):
+                raise RuntimeError("in the frame")
+    assert dict(RECORDER.syncs) == {"s01_tile_alloc": 2,
+                                    "s04_coarse_sort": 2, FRAME: 1}
+    assert RECORDER.sync_frames == 2
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+    params = RenderParams(256, 256, antialiasing="msaa16")
+    rs = resolve(filled_mmark(2, 256.0).encoding, params)
+    r = Renderer(device=cuda)
+    r.render_resolved(rs, params, out="rgba8")
+    prof = r.last_profile
+    assert 0.0 < prof["upload_s"] < prof["wall_s"]
+    assert prof["kernels_load_s"] <= prof["first_frame_s"] < prof["wall_s"]
+    thunk = r.frame_thunk()
+    RECORDER.reset()
+    counts = []
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(3):
+            before = sum(RECORDER.syncs.values())
+            thunk()
+            counts.append(sum(RECORDER.syncs.values()) - before)
+    torch.cuda.synchronize()
+    assert RECORDER.frames == RECORDER.sync_frames == 3
+    assert len(set(counts)) == 1, counts
+    assert torch.cuda.get_sync_debug_mode() == 0

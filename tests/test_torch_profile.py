@@ -309,5 +309,5 @@ def test_profile_stages_tool_prints_one_json_object(capsys):
     assert out["size"] == SIZE and out["device"] == "cpu"
     assert list(out["paths"]) == ["msaa16", "area", "msaa16_speed"]
     for path in out["paths"].values():
-        assert path["stages_ms"] == {}
+        assert path["stages_ms"] == {} and path["idle"] == {}
         assert {"lines", "touches", "path_tiles"} <= set(path["tier"])

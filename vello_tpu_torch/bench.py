@@ -20,10 +20,9 @@ frames with one sync at its end:
 - ``batched_fps``: BATCH frames per dispatch, as BATCH calls of
   ``render_frame`` on cloned buffers between two syncs (``bench.py``'s
   ``lax.map`` over stacked copies); ``batched`` holds its per-frame
-  ``frame_ms`` and ``device_ms`` and its ``launches`` over one batch;
+  ``frame_ms`` and its ``launches`` over one batch;
 - ``alt_fps``: area_quality and <AA>_speed on the headline's buffers,
-  tier and live cap, each {fps, frame_ms, device_ms, launches} or
-  "error: ...";
+  tier and live cap, each {fps, frame_ms, launches} or "error: ...";
 - ``scenes`` (BENCH_GENERAL): stroked_mmark, gradient_image_mmark and
   layered_mmark through ``Renderer.render_resolved`` and its
   ``frame_thunk``, with ``bench.py``'s keys and ``caps``, the tier the
@@ -35,11 +34,10 @@ per frame), ``build_s`` (wall time of ``kernels.build(force=True)``, every
 source through nvcc, in a subprocess after the timed loops; null with
 BENCH_COLD=0 or under ``--cpu``), ``kernels`` (the library and whether it
 had to be built at start) and ``backend`` ("cuda" or "cpu"). New keys:
-``device`` (the card's name, count and power limit), ``device_ms`` beside
-every ``frame_ms`` (the median of per-frame CUDA-event times in the same
-loop; null under ``--cpu``) and ``launches`` beside each entry (the
-kernel wrappers' non-zero launch counts over the entry's first frame, or
-first batch; none on the CPU, where no kernel launches).
+``device`` (the card's name, count and power limit) and ``launches``
+beside each entry (the kernel wrappers' non-zero launch counts over the
+entry's first frame, or first batch; none on the CPU, where no kernel
+launches).
 A frame that overflows after the headline's fallback prints an error line
 and exits non-zero.
 """
@@ -51,7 +49,6 @@ import dataclasses
 import json
 import os
 import platform
-import statistics
 import subprocess
 import sys
 import time
@@ -131,7 +128,6 @@ class Headline:
     encode_s: float
     first_call_s: float
     frame_ms: float
-    device_ms: float | None
     launches: dict
 
 
@@ -154,31 +150,20 @@ def device_info(device: torch.device) -> dict:
             "count": torch.cuda.device_count(), "power_limit": power}
 
 
-def timed(frame, iters: int, device: torch.device):
+def timed(frame, iters: int) -> float:
     """``frame`` () -> (image, overflow) run ``iters`` times back to back
-    with one sync at the end: (wall ms per frame, median ms per frame
-    between CUDA events recorded around each frame, or None on the CPU).
-    Raises Overflow if a frame overflowed."""
-    events, overflows = [], []
+    with one sync at the end: wall ms per frame. Raises Overflow if a
+    frame overflowed."""
+    overflows = []
     t0 = time.perf_counter()
     for _ in range(iters):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            overflows.append(frame()[1])
-            end.record()
-            events.append((start, end))
-        else:
-            overflows.append(frame()[1])
+        overflows.append(frame()[1])
     int(overflows[-1])                   # the loop's one sync
     wall_ms = (time.perf_counter() - t0) * 1e3 / iters
     flags = int(torch.stack([o.reshape(()) for o in overflows]).sum())
     if flags:
         raise Overflow(flags)
-    device_ms = (statistics.median(s.elapsed_time(e) for s, e in events)
-                 if events else None)
-    return wall_ms, device_ms
+    return wall_ms
 
 
 def counted(call):
@@ -230,15 +215,15 @@ def headline(cfg: Settings, device: torch.device) -> Headline:
     for _ in range(WARMUP):
         _, overflow = fn(bufs)
     int(overflow)
-    frame_ms, device_ms = timed(lambda: fn(bufs), cfg.iters, device)
+    frame_ms = timed(lambda: fn(bufs), cfg.iters)
     return Headline(rs, caps, params, static, bufs, img, encode_s,
-                    first_call_s, frame_ms, device_ms, launches)
+                    first_call_s, frame_ms, launches)
 
 
 def batched(head: Headline, cfg: Settings, device: torch.device):
     """BATCH frames per dispatch: (batched fps, the entry {batch,
-    frame_ms and device_ms per frame, launches over one batch}, the
-    BATCH u8 frames of one batch)."""
+    frame_ms per frame, launches over one batch}, the BATCH u8 frames of
+    one batch)."""
     copies = [{k: v.clone() for k, v in head.bufs.items()}
               for _ in range(cfg.batch)]
 
@@ -249,18 +234,15 @@ def batched(head: Headline, cfg: Settings, device: torch.device):
     (imgs, overflow), launches = counted(run)
     if int(overflow):
         raise Overflow(int(overflow))
-    wall_ms, device_ms = timed(run, max(cfg.iters // 2, 3), device)
+    wall_ms = timed(run, max(cfg.iters // 2, 3))
     entry = {"batch": cfg.batch, "frame_ms": wall_ms / cfg.batch,
-             "device_ms": (None if device_ms is None
-                           else device_ms / cfg.batch),
              "launches": launches}
     return cfg.batch * 1e3 / wall_ms, entry, imgs
 
 
 def alt_entries(head: Headline, cfg: Settings, device: torch.device):
     """area_quality and <AA>_speed on the headline's buffers, tier and
-    live cap: {name: {fps, frame_ms, device_ms, launches} or "error:
-    ..."}."""
+    live cap: {name: {fps, frame_ms, launches} or "error: ..."}."""
     out = {}
     for aa, mode in (("area", "quality"), (cfg.aa, "speed")):
         name = f"{aa}_{mode}"
@@ -275,10 +257,8 @@ def alt_entries(head: Headline, cfg: Settings, device: torch.device):
             flags = int(overflow)
             if flags:
                 raise Overflow(flags)
-            frame_ms, device_ms = timed(lambda: fn(head.bufs),
-                                        max(cfg.iters // 2, 3), device)
+            frame_ms = timed(lambda: fn(head.bufs), max(cfg.iters // 2, 3))
             out[name] = {"fps": 1e3 / frame_ms, "frame_ms": frame_ms,
-                         "device_ms": device_ms,
                          "launches": launches}
         except Exception as e:           # recorded in the line, as bench.py
             out[name] = f"error: {str(e)[:80]}"
@@ -305,10 +285,10 @@ def scene_entry(builder, params: RenderParams, iters: int,
     for _ in range(WARMUP):
         _, overflow = thunk()
     int(overflow)
-    frame_ms, device_ms = timed(thunk, iters, device)
+    frame_ms = timed(thunk, iters)
     prof = r.last_profile
     return {"fps": 1e3 / frame_ms, "frame_ms": frame_ms,
-            "device_ms": device_ms, "launches": launches,
+            "launches": launches,
             "resolve_s": resolve_s, "first_frame_s": first_s,
             "n_paths": rs.n_paths, "n_segs": rs.n_segs,
             "est_lines": rs.est_lines, "retries": prof["retries"],
@@ -401,7 +381,6 @@ def main(argv=None) -> None:
         "vs_baseline": fps / BASELINE_FPS,
         "extra": {
             "frame_ms": head.frame_ms,
-            "device_ms": head.device_ms,
             "launches": head.launches,
             "batched_fps": batch_fps,
             "batched": batch,

@@ -23,6 +23,7 @@ from .encoding import (DRAW_BEGIN_LAYER, DRAW_BLUR_RECT, DRAW_COLOR,
                        DRAW_END_LAYER, DRAW_GRADIENT, DRAW_IMAGE, Encoding,
                        decode_segments)
 from ..ops.paint import RAMP_WIDTH, make_ramp, pack_gradient
+from ..utils.profile import Span
 
 # paint kinds (per-path table)
 PAINT_COLOR = 0
@@ -524,16 +525,12 @@ def resolve(encoding: Encoding, params: RenderParams) -> ResolvedScene:
     return _resolve_impl(encoding, params, RampCache(), ImageAtlas())
 
 
-def _resolve_impl(encoding: Encoding, params: RenderParams,
-                  ramp_cache: "RampCache",
-                  atlas: "ImageAtlas") -> ResolvedScene:
-    tags, data, transforms, styles = encoding.packed_streams()
-    styles_hw = encoding.style_hw_array()
-    decoded = decode_segments(tags, data, transforms, styles,
-                              style_hw=styles_hw)
+def _resolve_paints(encoding: Encoding, decoded: dict,
+                    ramp_cache: "RampCache", atlas: "ImageAtlas") -> dict:
+    """The per-path paint, fill rule and kind arrays and the per-draw
+    arrays and layers of a decoded encoding (the ResolvedScene fields of
+    those names)."""
     n_paths = encoding.n_paths
-    has_stroke = bool(len(decoded["hw"]) and (decoded["hw"] > 0).any())
-
     # per-path transform (first segment of each path wins) — one vectorised
     # pass; np.unique(return_index) gives each path's first segment.
     path_tmat = np.tile(np.array([1, 0, 0, 1, 0, 0], np.float32),
@@ -546,7 +543,6 @@ def _resolve_impl(encoding: Encoding, params: RenderParams,
         uniq, first_ix = uniq[valid], first_ix[valid]
         path_tmat[uniq] = decoded["transform"][first_ix]
         first_seg = (uniq, first_ix)
-
 
     P = max(n_paths, 1)
     paint_kind = np.zeros(P, dtype=np.int32)
@@ -651,16 +647,43 @@ def _resolve_impl(encoding: Encoding, params: RenderParams,
             x, y, w, h = atlas.add(img)
             image_rec[p][:4] = [x, y, w, h]
 
-    (est_lines, est_touches, est_path_tiles, est_live, path_rect,
-     max_lines) = _estimate(
-        decoded, transforms, params)
-    has_left_edge = _hull_crosses_left_edge(decoded)
-    est_edges = 0
-    if has_left_edge:
-        est_edges, est_edge_touches = _estimate_edges(decoded)
-        # every edge slot emits >= 1 touch (dummies for dead slots), and
-        # the slot capacity is padded by tier_for — bill the worst case
-        est_touches += est_edge_touches + est_edges + 512
+    return dict(paint_kind=paint_kind, fill_rule=fill_rule, color=color,
+                grad_rec=grad_rec, paint_inv=paint_inv, image_rec=image_rec,
+                blur_rec=blur_rec, path_kind=path_kind, draw_kind=draw_kind,
+                draw_path_ix=draw_path_ix, draw_path_n=draw_path_n,
+                layers=layers)
+
+
+def _resolve_impl(encoding: Encoding, params: RenderParams,
+                  ramp_cache: "RampCache",
+                  atlas: "ImageAtlas") -> ResolvedScene:
+    """The resolve in three host spans (``utils.profile.Span``):
+    ``vt.resolve.decode`` (the packed streams and the segment decode),
+    ``vt.resolve.paint`` (paints, fill rules, draws and layers) and
+    ``vt.resolve.estimate`` (the capacity estimates and the left-edge
+    test); the transform fold and the arrays' assembly are in none."""
+    with Span("vt.resolve.decode"):
+        tags, data, transforms, styles = encoding.packed_streams()
+        styles_hw = encoding.style_hw_array()
+        decoded = decode_segments(tags, data, transforms, styles,
+                                  style_hw=styles_hw)
+    n_paths = encoding.n_paths
+    has_stroke = bool(len(decoded["hw"]) and (decoded["hw"] > 0).any())
+    with Span("vt.resolve.paint"):
+        paints = _resolve_paints(encoding, decoded, ramp_cache, atlas)
+    P = max(n_paths, 1)
+
+    with Span("vt.resolve.estimate"):
+        (est_lines, est_touches, est_path_tiles, est_live, path_rect,
+         max_lines) = _estimate(decoded, transforms, params)
+        has_left_edge = _hull_crosses_left_edge(decoded)
+        est_edges = 0
+        if has_left_edge:
+            est_edges, est_edge_touches = _estimate_edges(decoded)
+            # every edge slot emits >= 1 touch (dummies for dead slots),
+            # and the slot capacity is padded by tier_for — bill the worst
+            # case
+            est_touches += est_edge_touches + est_edges + 512
     if len(path_rect) < P:
         path_rect = np.concatenate(
             [path_rect, np.zeros((P - len(path_rect), 4), np.int32)])
@@ -682,12 +705,8 @@ def _resolve_impl(encoding: Encoding, params: RenderParams,
 
     return ResolvedScene(
         tags=tags, data=data, transforms=transforms, styles=styles,
-        n_paths=n_paths, n_segs=encoding.n_path_segments,
-        draw_kind=draw_kind, draw_path_ix=draw_path_ix,
-        draw_path_n=draw_path_n, layers=layers,
-        paint_kind=paint_kind, fill_rule=fill_rule, color=color,
-        grad_rec=grad_rec, paint_inv=paint_inv, image_rec=image_rec,
-        blur_rec=blur_rec, path_kind=path_kind, path_rect=path_rect,
+        n_paths=n_paths, n_segs=encoding.n_path_segments, **paints,
+        path_rect=path_rect,
         seg_pts=seg_pts_t,
         seg_path=decoded["path_ix"].astype(np.int32),
         seg_kind=decoded["kind"].astype(np.int32),

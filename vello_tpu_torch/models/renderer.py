@@ -8,8 +8,8 @@ of ``vello::Renderer``).
 
 from __future__ import annotations
 
+import contextlib
 import os
-import time
 from dataclasses import replace
 
 import numpy as np
@@ -22,7 +22,7 @@ from ..pipeline import layered
 from ..pipeline.render import (PipelineStatic, get_pipeline,
                                wants_fused_geom)
 from ..scene import Scene
-from ..utils.profile import profile_stages
+from ..utils.profile import Span, frame_span, profile_stages
 
 # Attribute of a ResolvedScene under which the port caches its device
 # tensors (the JAX Renderer caches jax arrays under ``_device_bufs``).
@@ -158,6 +158,19 @@ def pipeline_static(resolved, caps: Capacities, params: RenderParams, *,
         fused_geom=fused_geom)
 
 
+def frame_call(fn, bufs: dict, cuda: bool):
+    """The frame that ``Renderer.frame_thunk`` hands out: () -> ``fn(bufs)``,
+    inside ``vt.frame`` (``utils.profile.frame_span``; ``cuda``: its
+    synchronisations counted) while a profiler records, else after one
+    flag test."""
+    def frame():
+        if torch.autograd._profiler_enabled():
+            with frame_span(cuda):
+                return fn(bufs)
+        return fn(bufs)
+    return frame
+
+
 def to_torch(bufs_np: dict, device) -> dict:
     """The packed numpy buffers as tensors on ``device`` (same dtypes and
     shapes; 0-d arrays stay 0-d)."""
@@ -206,9 +219,14 @@ class Renderer:
 
     ``device`` is a torch device ("cpu" runs every kernel's plain PyTorch
     version; "cuda" runs the CUDA kernels and raises when there is no
-    GPU). ``last_profile`` holds the tier, retries, live-fragment cap, the
-    wall time of the last render up to its readback and the readback's
-    time; ``profile`` gives the per-stage device time of a frame."""
+    GPU). ``last_profile`` holds the tier, retries, live-fragment cap, and
+    the host spans of the last render (``utils.profile.Span``): its wall
+    time up to the readback (``wall_s``), the readback's (``readback_s``),
+    and within the first, the packing and upload of its buffers
+    (``upload_s``), its frames on freshly uploaded buffers up to their
+    overflow reads (``first_frame_s``) and the kernel library's load
+    (``kernels_load_s``), each 0.0 where the render had none; ``profile``
+    gives the per-stage device time of a frame."""
 
     def __init__(self, device="cuda", max_retries: int = 3):
         self.device = torch.device(device)
@@ -236,15 +254,18 @@ class Renderer:
         each kernel's time under its stage (``utils.profile``), plus
         "_total" and "_other". Returns {} when there is no device trace
         (a CPU renderer). Sets ``last_profile`` to {"stages", "tier"}, as
-        the JAX Renderer does, and "kernels": {(stage, kernel name): ms}.
+        the JAX Renderer does, "kernels": {(stage, kernel name): ms} and
+        "idle": the device's idle ms and the host's CUDA runtime calls per
+        frame under each host range (``utils.profile.idle_by_range``).
         As the JAX method, it renders ``params`` as given, whatever
         VELLO_TPU_SUPERSAMPLE_MSAA says."""
         self.render_resolved(resolve(scene.encoding, params), params)
         tier = self.last_profile["tier"]
-        stages, split, _ = (profile_stages(self._frame, detail=True)
-                            if self.device.type == "cuda" else ({}, {}, {}))
+        stages, split, _, idle = (
+            profile_stages(self._frame, detail=True)
+            if self.device.type == "cuda" else ({}, {}, {}, {}))
         self.last_profile = {"stages": stages, "tier": tier,
-                             "kernels": split}
+                             "kernels": split, "idle": idle}
         return stages
 
     def _use_supersample(self, params: RenderParams) -> bool:
@@ -286,38 +307,45 @@ class Renderer:
         ``last_profile`` holds its tier and retries."""
         up, big = supersampled_scene(scene, params)
         rs = resolve(up.encoding, big)
-        t_start = time.time()
-        img = self._render_device(rs, big)
-        img = box_resolve(img, params.height, params.width,
-                          supersample_factor(params))
-        if out == "rgba8":
-            img = rgba8_device(img)
-        return self._read_back(img, t_start)
+        with Span("vt.render") as render:
+            img = self._render_device(rs, big)
+            img = box_resolve(img, params.height, params.width,
+                              supersample_factor(params))
+            if out == "rgba8":
+                img = rgba8_device(img)
+        return self._read_back(img, render)
 
     def _device_bufs(self, rs: ResolvedScene, caps: Capacities,
-                     params: RenderParams, slim: bool, paint8: bool) -> dict:
+                     params: RenderParams, slim: bool, paint8: bool):
+        """(the scene's buffers on the device, whether they were packed
+        and uploaded now, in ``vt.upload``, rather than cached)."""
         key = (caps.key(), params.width, params.height,
                tuple(params.base_color), str(self.device), slim, paint8)
         cached = getattr(rs, _CACHE_ATTR, None)
         if cached is not None and cached[0] == key:
-            return cached[1]
-        bufs = to_torch(pack_buffers(rs, caps, params, slim=slim,
-                                     paint8=paint8), self.device)
+            return cached[1], False
+        with Span("vt.upload"):
+            bufs = to_torch(pack_buffers(rs, caps, params, slim=slim,
+                                         paint8=paint8), self.device)
         object.__setattr__(rs, _CACHE_ATTR, (key, bufs))
-        return bufs
+        return bufs, True
 
     def render_resolved(self, rs: ResolvedScene, params: RenderParams,
                         out: str = "f32") -> np.ndarray:
-        t_start = time.time()
-        return self._read_back(self._render_device(rs, params, out), t_start)
+        with Span("vt.render") as render:
+            img = self._render_device(rs, params, out)
+        return self._read_back(img, render)
 
-    def _read_back(self, img: torch.Tensor, t_start: float) -> np.ndarray:
-        """The image to the host; ``last_profile`` gets the wall time up
-        to the readback and the readback's."""
-        t_done = time.time()
-        out = img.cpu().numpy()
-        self.last_profile.update(wall_s=t_done - t_start,
-                                 readback_s=time.time() - t_done)
+    def _read_back(self, img: torch.Tensor, render: Span) -> np.ndarray:
+        """The image to the host; ``last_profile`` gets the spans of the
+        render (``render``, up to the readback) and of the readback."""
+        with Span("vt.readback") as readback:
+            out = img.cpu().numpy()
+        self.last_profile.update(
+            wall_s=render.seconds, readback_s=readback.seconds,
+            upload_s=render.within("vt.upload"),
+            first_frame_s=render.within("vt.first_frame"),
+            kernels_load_s=render.within("vt.kernels_load"))
         return out
 
     def _render_device(self, rs: ResolvedScene, params: RenderParams,
@@ -342,6 +370,7 @@ class Renderer:
         # bit 16 doubles the live-fragment cap on a retry
         n_live = live_cap([rs], caps)
         has_edge = bool(rs.has_left_edge)
+        cuda = self.device.type == "cuda"
         overflow = 0
         for attempt in range(self.max_retries + 1):
             static = pipeline_static([rs], caps, params, fused_geom=slim,
@@ -351,11 +380,15 @@ class Renderer:
                                                   u8_out=(out == "rgba8"))
             else:
                 fn = get_pipeline(static, u8_out=(out == "rgba8"))
-            bufs = self._device_bufs(rs, caps, params, slim, paint8)
-            frame = (lambda f=fn, b=bufs: f(b))
+            bufs, uploaded = self._device_bufs(rs, caps, params, slim,
+                                               paint8)
+            frame = frame_call(fn, bufs, cuda)
             self._frame = frame
-            img, overflow_t = frame()
-            overflow = int(overflow_t)           # the frame's one readback
+            # a frame on new buffers, with the kernels' load on first use
+            with (Span("vt.first_frame") if uploaded
+                  else contextlib.nullcontext()):
+                img, overflow_t = frame()
+                overflow = int(overflow_t)       # the frame's one readback
             if overflow == 0:
                 self.last_profile = {
                     "tier": dict(zip(_TIER_KEYS, caps.key())),

@@ -24,7 +24,8 @@ A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel on the current stream or raises; there is no other
 fallback. The sources build with ``nvcc`` into one shared library with a
 plain C interface (``build/libvello_kernels.so``) the first time a CUDA
-tensor reaches a wrapper, so importing this module needs neither CUDA nor
+tensor reaches a wrapper (the build and load are the host span
+``vt.kernels_load``), so importing this module needs neither CUDA nor
 ``nvcc``. ``launches`` counts the kernel launches of each wrapper (K6 and
 K7 count their bf16 instantiations apart, as ``composite_src_bf16`` and
 ``composite_over_bf16``, and K5 its raw entry as ``coverage_area_raw``).
@@ -43,6 +44,7 @@ from ..encoding.config import TILE_H, TILE_W
 from .fine import (NPX, composite_over_plain, composite_solid_plain,
                    composite_src_plain, coverage_area_plain,
                    coverage_area_raw_plain, msaa_coverage_plain)
+from ..utils.profile import Span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -179,27 +181,28 @@ def build(force: bool = False) -> str:
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        L = ctypes.c_int64
-        sigs = {
-            "vt_flatten": [P, P, I, I, P, I, F, F, P],
-            "vt_expand_touches": [P, P, I, P, I, P],
-            "vt_msaa_coverage": [P, P, P, P, P, P, I, I, I, P, P],
-            "vt_composite_solid": [P, P, P, P, P, I, P, P],
-            "vt_coverage_area": [P, P, P, P, P, I, I, P, P],
-            "vt_coverage_area_raw": [P, P, I, P, P],
-            "vt_composite_src": [P, P, P, P, I, P, P],
-            "vt_composite_src_bf16": [P, P, P, P, I, P, P],
-            "vt_composite_over": [P, P, P, I, P, P],
-            "vt_composite_over_bf16": [P, P, P, I, P, P],
-            "vt_cumsum": [P, L, I, I, P, P, P],
-        }
-        for name, argtypes in sigs.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        with Span("vt.kernels_load"):
+            lib = ctypes.CDLL(build())
+            P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            L = ctypes.c_int64
+            sigs = {
+                "vt_flatten": [P, P, I, I, P, I, F, F, P],
+                "vt_expand_touches": [P, P, I, P, I, P],
+                "vt_msaa_coverage": [P, P, P, P, P, P, I, I, I, P, P],
+                "vt_composite_solid": [P, P, P, P, P, I, P, P],
+                "vt_coverage_area": [P, P, P, P, P, I, I, P, P],
+                "vt_coverage_area_raw": [P, P, I, P, P],
+                "vt_composite_src": [P, P, P, P, I, P, P],
+                "vt_composite_src_bf16": [P, P, P, P, I, P, P],
+                "vt_composite_over": [P, P, P, I, P, P],
+                "vt_composite_over_bf16": [P, P, P, I, P, P],
+                "vt_cumsum": [P, L, I, I, P, P, P],
+            }
+            for name, argtypes in sigs.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

@@ -8,12 +8,13 @@ Builds ``filled_mmark(complexity, size)`` (defaults 10 and 1024, as the
 JAX package's tool), times the scene build, the encoding's packed streams
 and the host resolve, then renders the msaa16, area and msaa16_speed
 (render_mode "speed") paths with ``Renderer.profile``: device ms per stage
-(s01_tile_alloc ... s10_composite), "_other" and "_total", on the GPU
-when one is available. On the CPU there is no device trace, so each
-path's stages are empty. The last line printed is one JSON object:
-{"encode": {"build_s", "encode_streams_s", "resolve_s"}, "n_paths",
-"n_segs", "est_lines", "size", "device", "paths": {path: {"stages_ms",
-"tier"}}}.
+(s01_tile_alloc ... s10_composite), "_other" and "_total", then, per host
+range with device idle time, the idle ms and the host's CUDA runtime calls
+(``utils.profile.idle_by_range``), on the GPU when one is available. On
+the CPU there is no device trace, so each path's stages and idle split are
+empty. The last line printed is one JSON object: {"encode": {"build_s",
+"encode_streams_s", "resolve_s"}, "n_paths", "n_segs", "est_lines",
+"size", "device", "paths": {path: {"stages_ms", "tier", "idle"}}}.
 """
 
 from __future__ import annotations
@@ -62,10 +63,17 @@ def main(argv=None) -> dict:
                               render_mode=mode)
         r = Renderer(device=device)
         stages = r.profile(scene, params)
+        idle = r.last_profile["idle"]
         out["paths"][path] = {"stages_ms": stages,
-                              "tier": r.last_profile["tier"]}
+                              "tier": r.last_profile["tier"], "idle": idle}
         for name, ms in stages.items():
             print(f"{path:13s} {name:22s} {ms:10.4f} ms", flush=True)
+        for name, v in sorted(idle.items(), key=lambda kv: -kv[1]["idle_ms"]):
+            calls = ", ".join(f"{c} {ms:.4f}" for c, ms in sorted(
+                v["runtime_ms"].items(), key=lambda kv: -kv[1]))
+            print(f"{path:13s} idle in {name:22s} {v['idle_ms']:10.4f} ms; "
+                  f"host {v['host_ms']:.4f} ms, runtime calls: {calls}",
+                  flush=True)
         if not stages:
             print(f"{path:13s} (no device trace on the {device})",
                   flush=True)
