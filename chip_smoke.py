@@ -53,15 +53,16 @@ Phases (any failure exits non-zero):
      n. msaa8_supersampled: the same in msaa8, a 4800x4800 centers frame
         and a 3x3 resolve;
      each with overflow 0, no retry, the host's tier and one launch of each
-     of its kernels (K7: as many as the plan's non-empty draws ops; K8: as
-     many as its clipped pushes); first-frame and warm per-frame times, peak
-     memory; Renderer.profile's device ms per stage, held to cover all but
-     5% of the device time with each kernel under its stage (K1 under
-     s02_flatten, K2 under s03_touch_expand, ...), and each kernel's
-     in-frame time per launch; the stage ranges' host cost; then the
-     supersampled msaa16 frame (f32) within SAMPLE_MASK_MEAN mean abs of
-     the sample-mask msaa16 frame of the same scene, and its render_u8
-     bytes equal to utils.png.to_rgba8 of its f32 frame;
+     of its kernels (the fused paths' segment preparation before K1 too;
+     K7: as many as the plan's non-empty draws ops; K8: as many as its
+     clipped pushes); first-frame and warm per-frame times, peak memory;
+     Renderer.profile's device ms per stage, held to cover all but 5% of
+     the device time with each kernel under its stage (K1 and the segment
+     preparation under s02_flatten, K2 under s03_touch_expand, ...), and
+     each kernel's in-frame time per launch; the stage ranges' host cost;
+     then the supersampled msaa16 frame (f32) within SAMPLE_MASK_MEAN mean
+     abs of the sample-mask msaa16 frame of the same scene, and its
+     render_u8 bytes equal to utils.png.to_rgba8 of its f32 frame;
   4. each kernel against its plain PyTorch version on the inputs of the
      path named for it in KERNELS (K1 twice: on the fill rows of the msaa16
      frame and on the stroke rows of the stroked frame; K2 and K3 twice: on
@@ -70,11 +71,15 @@ Phases (any failure exits non-zero):
      it works in place; the bf16 instantiations of K6 on the
      gradient_image_speed frame's inputs and of K7 on the layered_speed
      frame's largest draws op, each equal to its plain version, its bytes
-     bound counting src at 2 bytes; K8 twice: on the unrolled frame's largest clipped
-     push, and on a seeded (n_live, 256) input at the layered cell's live
-     tier, uniform and in multiples of 1/16; K1, K2, K5 and K4 once more on
-     each of the three centers paths' inputs, the <kernel>_<path> entries,
-     K5 with its centers threshold and bit-equal), with times for both (CUDA
+     bound counting src at 2 bytes; K8 twice: on the unrolled frame's
+     largest clipped push, and on a seeded (n_live, 256) input at the
+     layered cell's live tier, uniform and in multiples of 1/16; K1, K2, K5
+     and K4 once more on each of the three centers paths' inputs, the
+     <kernel>_<path> entries, K5 with its centers threshold and bit-equal;
+     the segment preparation before K1 (segment_prep: its two kernels and
+     the torch.cumsum between them) twice, on the msaa16 frame's fill-only
+     segments and the stroked frame's, its pack and count scan bit-equal to
+     its plain version's, bound by bytes alone), with times for both (CUDA
      events, and the kernel's profiled time), the least time the card
      could take and, for K8, torch.cumsum's time; the paint evaluation's
      time on the gradient frame's inputs;
@@ -272,6 +277,15 @@ KERNELS = {
                             "vello_tpu_torch/csrc/cumsum.cu",
                             "vello_tpu/ops/pallas_kernels.py:496",
                             "layered_unrolled"),
+    # no TPU kernel: the JAX package's XLA fuses the segment chain
+    "segment_prep": ("segment_prep", "segment_prep", "segment_prep_plain",
+                     "vello_tpu_torch/csrc/segment_prep.cu",
+                     "none (vello_tpu/ops/flatten.py:222)", "msaa16"),
+    "segment_prep_stroked": ("segment_prep", "segment_prep",
+                             "segment_prep_plain",
+                             "vello_tpu_torch/csrc/segment_prep.cu",
+                             "none (vello_tpu/ops/flatten.py:222)",
+                             "stroked"),
 }
 # the centers paths' four kernels, each held on its path's inputs: entry
 # <kernel>_<path> (K5 with its centers threshold)
@@ -314,6 +328,8 @@ KERNEL_STAGES = {
                             "s20_op_draws"),
     "cumsum": (("cumsum_totals_kernel", "cumsum_carries_kernel",
                 "cumsum_rows_kernel"), "s21_op_push"),
+    "segment_prep": (("segment_prep_kernel", "segment_offsets_kernel"),
+                     "s02_flatten"),
 }
 
 # frame path -> (scene, antialiasing, the launch counters of its kernels);
@@ -324,32 +340,32 @@ KERNEL_STAGES = {
 # square, then the k x k box resolve
 PATHS = {
     "msaa16": ("filled_mmark", "msaa16",
-               ("flatten", "expand_touches", "msaa_coverage",
+               ("segment_prep", "flatten", "expand_touches", "msaa_coverage",
                 "composite_solid")),
     "area": ("filled_mmark", "area",
-             ("flatten", "expand_touches", "coverage_area",
+             ("segment_prep", "flatten", "expand_touches", "coverage_area",
               "composite_solid")),
     "gradient_image": ("mixed_paint_mmark", "msaa16",
-                       ("flatten", "expand_touches", "msaa_coverage",
-                        "composite_src")),
+                       ("segment_prep", "flatten", "expand_touches",
+                        "msaa_coverage", "composite_src")),
     "stroked": ("mmark", "msaa16",
-                ("flatten", "expand_touches", "msaa_coverage",
+                ("segment_prep", "flatten", "expand_touches", "msaa_coverage",
                  "composite_solid")),
     "layered": ("layered_mmark", "msaa16",
-                ("flatten", "expand_touches", "msaa_coverage",
+                ("segment_prep", "flatten", "expand_touches", "msaa_coverage",
                  "composite_over")),
     "layered_unrolled": ("blend_grid", "msaa16",
-                         ("flatten", "expand_touches", "msaa_coverage",
-                          "composite_over", "cumsum")),
+                         ("segment_prep", "flatten", "expand_touches",
+                          "msaa_coverage", "composite_over", "cumsum")),
     "msaa16_speed": ("filled_mmark", "msaa16",
-                     ("flatten", "expand_touches", "msaa_coverage",
-                      "composite_solid")),
+                     ("segment_prep", "flatten", "expand_touches",
+                      "msaa_coverage", "composite_solid")),
     "gradient_image_speed": ("mixed_paint_mmark", "msaa16",
-                             ("flatten", "expand_touches", "msaa_coverage",
-                              "composite_src_bf16")),
+                             ("segment_prep", "flatten", "expand_touches",
+                              "msaa_coverage", "composite_src_bf16")),
     "layered_speed": ("layered_mmark", "msaa16",
-                      ("flatten", "expand_touches", "msaa_coverage",
-                       "composite_over_bf16")),
+                      ("segment_prep", "flatten", "expand_touches",
+                       "msaa_coverage", "composite_over_bf16")),
     "msaa16_unfused": ("filled_mmark", "msaa16",
                        ("expand_touches", "msaa_coverage",
                         "composite_solid")),
@@ -357,14 +373,14 @@ PATHS = {
                         ("expand_touches", "msaa_coverage",
                          "composite_solid")),
     "centers": ("filled_mmark", "centers",
-                ("flatten", "expand_touches", "coverage_area",
+                ("segment_prep", "flatten", "expand_touches", "coverage_area",
                  "composite_solid")),
     "msaa16_supersampled": ("filled_mmark", "msaa16",
-                            ("flatten", "expand_touches", "coverage_area",
-                             "composite_solid")),
+                            ("segment_prep", "flatten", "expand_touches",
+                             "coverage_area", "composite_solid")),
     "msaa8_supersampled": ("filled_mmark", "msaa8",
-                           ("flatten", "expand_touches", "coverage_area",
-                            "composite_solid")),
+                           ("segment_prep", "flatten", "expand_touches",
+                            "coverage_area", "composite_solid")),
 }
 UNROLLED = "VELLO_TPU_UNROLLED_LAYERS"
 NO_FUSED_GEOM = "VELLO_TPU_NO_FUSED_GEOM"
@@ -882,6 +898,12 @@ def bound(name, args, out):
         ops = walked * 256 * OPS_PER_OVER_COMPOSITE
     elif name.startswith("cumsum"):
         ops = args[0].numel()            # one add per element
+    elif name.startswith("segment_prep"):
+        # bytes: each segment's fields, each path's 6 rect fields (i32) and
+        # n_segs read once, the pack and the count scan written once
+        nbytes = (_nbytes(*args[:4], *args[5:7], *out)
+                  + 24 * args[4]["tx0"].shape[0])
+        ops = 0
     elif name.startswith("composite"):
         # a walk reads only its tiles' rows [los, his): the fragments
         # hidden under an opaque full cover, and the rows past the live
@@ -923,8 +945,9 @@ def bound(name, args, out):
 def compare(name, got, ref):
     """Hold a kernel's output to its plain version's; returns the max
     abs error. Bars: the geometry kernels (K1, K2), msaa coverage and the
-    layered draws op and K5's raw entry exact (the same f32 ops in the
-    same order, no contraction), the other composites atol 2e-5, area
+    layered draws op, K5's raw entry and the segment preparation (its pack
+    and count scan) exact (the same f32 ops in the same order, no
+    contraction), the other composites atol 2e-5, area
     coverage atol 1e-6
     (the same op order: expected 0), and with its centers threshold (the
     coverage_area_<path> entries) bit-equal, since a residue would flip a
@@ -933,12 +956,14 @@ def compare(name, got, ref):
     largest prefix on uniform values (both sum in f64 and round once, in
     different orders); the bf16 instantiations of K6 and K7 exact (each
     value widened exactly, then K6's and K7's f32 arithmetic)."""
+    if isinstance(got, tuple):       # the segment preparation: spack, incl
+        return max(compare(name, g, r) for g, r in zip(got, ref))
     got, ref = got.float().cpu().numpy(), ref.float().cpu().numpy()
     if got.shape != ref.shape or not np.isfinite(got).all():
         fail(f"{name}: shape {got.shape} vs {ref.shape} or non-finite")
     err = float(np.abs(got - ref).max()) if got.size else 0.0
     if name.startswith(("flatten", "expand_touches", "msaa_coverage",
-                        "coverage_area_raw")):
+                        "coverage_area_raw", "segment_prep")):
         if not np.array_equal(got, ref):
             fail(f"{name}: differs from the plain version (max abs err "
                  f"{err}; expected bit-equal)")
@@ -1134,7 +1159,8 @@ def corpus_launches(rs, counters):
                                                    DRAW_END_LAYER)
     from vello_tpu_torch.pipeline import layered
     out = {name: 0 for name in counters}
-    out.update(flatten=1, expand_touches=1, coverage_area=1)
+    out.update(segment_prep=1, flatten=1, expand_touches=1,
+               coverage_area=1)
     if any(int(k) in (DRAW_BEGIN_LAYER, DRAW_END_LAYER)
            for k in rs.draw_kind):
         out["composite_over"] = layered.nonempty_draws(
@@ -1273,29 +1299,29 @@ TEXT_SIZE = 1024
 TEXT_CHECK_SIZE = 512
 TEXT_CELLS = {
     "text_heavy": ("text_heavy", "area",
-                   ("flatten", "expand_touches", "coverage_area",
-                    "composite_solid")),
+                   ("segment_prep", "flatten", "expand_touches",
+                    "coverage_area", "composite_solid")),
     "text_heavy_msaa16": ("text_heavy", "msaa16",
-                          ("flatten", "expand_touches", "msaa_coverage",
-                           "composite_solid")),
+                          ("segment_prep", "flatten", "expand_touches",
+                           "msaa_coverage", "composite_solid")),
     "text_scene": ("text_scene", "area",
-                   ("flatten", "expand_touches", "coverage_area",
-                    "composite_src")),
+                   ("segment_prep", "flatten", "expand_touches",
+                    "coverage_area", "composite_src")),
     "glyph_runs": ("glyph_runs", "area",
-                   ("flatten", "expand_touches", "coverage_area",
-                    "composite_solid")),
+                   ("segment_prep", "flatten", "expand_touches",
+                    "coverage_area", "composite_solid")),
     "glyph_raster": ("glyph_raster", "area",
-                     ("flatten", "expand_touches", "coverage_area",
-                      "composite_src")),
+                     ("segment_prep", "flatten", "expand_touches",
+                      "coverage_area", "composite_src")),
     # the emoji pickers (PICKERS): COLR v1 glyphs through the layered
     # compositor, K7 once per non-empty draws op; bitmap strikes as image
     # rects (K6)
     "color_glyphs": ("color_glyphs", "area",
-                     ("flatten", "expand_touches", "coverage_area",
-                      "composite_over")),
+                     ("segment_prep", "flatten", "expand_touches",
+                      "coverage_area", "composite_over")),
     "bitmap_glyphs": ("bitmap_glyphs", "area",
-                      ("flatten", "expand_touches", "coverage_area",
-                       "composite_src")),
+                      ("segment_prep", "flatten", "expand_touches",
+                       "coverage_area", "composite_src")),
 }
 # an emoji picker, as a chat client or an OS draws one: a DejaVu header
 # line over PICKER_ROWS x PICKER_COLS color glyphs at PICKER_PX (scaled by
@@ -2054,6 +2080,10 @@ def main():
                 captured[name] = calls[spec[1]]
     if captured["flatten_stroke_rows"][0][0].shape[1] != 21:
         fail("the stroked frame gave K1 no stroke rows")
+    if (captured["segment_prep_stroked"][0][5] is None
+            or captured["segment_prep"][0][5] is not None):
+        fail("the segment preparation's stroke columns: expected on the "
+             "stroked frame only")
     for path in CENTERS_PATHS:
         if captured[f"coverage_area_{path}"][0][5] is not True:
             fail(f"the {path} frame did not run K5 with its centers "

@@ -7,8 +7,9 @@ import numpy as np
 import pytest
 import torch
 
+import segment_cases
 from vello_tpu_torch import Renderer, RenderParams, resolve
-from vello_tpu_torch.ops import fine, kernels
+from vello_tpu_torch.ops import fine, kernels, tiling
 from vello_tpu_torch.pipeline import layered
 from vello_tpu_torch.scenes.test_scenes import (blend_grid, filled_mmark,
                                                 layered_mmark,
@@ -33,7 +34,8 @@ def test_gpu_frame_equals_cpu_frame(cuda, aa):
     gpu = Renderer(device=cuda).render_resolved(rs, params, out="rgba8")
     counts = dict(kernels.launches)
     coverage = "msaa_coverage" if aa.startswith("msaa") else "coverage_area"
-    used = {"flatten", "expand_touches", coverage, "composite_solid"}
+    used = {"segment_prep", "flatten", "expand_touches", coverage,
+            "composite_solid"}
     assert counts == {k: int(k in used) for k in counts}, counts
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     np.testing.assert_array_equal(gpu, cpu)
@@ -261,7 +263,8 @@ def test_gpu_paint_and_stroke_frames_equal_cpu_frames(cuda, scene,
     gpu = Renderer(device=cuda).render_resolved(rs, params, out="rgba8")
     counts = dict(kernels.launches)
     coverage = "msaa_coverage" if aa == "msaa16" else "coverage_area"
-    used = {"flatten", "expand_touches", coverage, composite}
+    used = {"segment_prep", "flatten", "expand_touches", coverage,
+            composite}
     assert counts == {k: int(k in used) for k in counts}, counts
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     diff = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
@@ -309,6 +312,71 @@ def test_stroke_rows_kernel_matches_plain(cuda):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
+# the segment preparation's scenes: mmark-30k at 1600x1600 (the
+# benchmark's stroke soup: lines, quads and cubics), the fill-only blob
+# field, and fills and strokes in one scene
+SEGMENT_SCENES = {
+    "mmark": (lambda: mmark(30, 1600.0), 1600),
+    "filled_mmark": (lambda: filled_mmark(4, 1024.0), 1024),
+    "mixed": (lambda: segment_cases.mixed_scene(4, 1024.0), 1024)}
+
+
+@pytest.mark.parametrize("name", sorted(SEGMENT_SCENES)
+                         + list(segment_cases.SYNTHETIC))
+def test_segment_prep_kernel_matches_plain(cuda, name):
+    """The segment preparation's kernels against their plain version on
+    the card, bit for bit (int32 views: signed zeros too): the counts and
+    their scan, and every column of the segment pack, the offsets from the
+    scan included; one counted launch; 16 columns without strokes."""
+    if name in SEGMENT_SCENES:
+        build, size = SEGMENT_SCENES[name]
+        case = segment_cases.scene_case(build(), size)
+    else:
+        case = segment_cases.synthetic_case(name)
+    stroked = "seg_hw" in case
+    keys = ("seg_pts", "seg_kind", "seg_path", "n_segs", "path_rect") + (
+        ("seg_hw", "seg_join") if stroked else ())
+    t = {k: torch.from_numpy(np.asarray(case[k])).to(cuda) for k in keys}
+    rects = tiling.tile_alloc(t["path_rect"], case["wt"], case["ht"])
+    args = (t["seg_pts"], t["seg_kind"], t["seg_path"], t["n_segs"], rects,
+            t.get("seg_hw"), t.get("seg_join"), case["max_lines"])
+    kernels.reset_launches()
+    spack, incl = kernels.segment_prep(*args)
+    assert kernels.launches["segment_prep"] == 1
+    ref, ref_incl = kernels.segment_prep_plain(*args)
+    assert spack.shape == ref.shape == (case["seg_kind"].shape[0],
+                                        21 if stroked else 16)
+    assert torch.equal(incl, ref_incl)
+    bad = (spack.view(torch.int32) != ref.view(torch.int32)).any(dim=0)
+    assert not bad.any(), f"columns differ: {bad.nonzero().flatten()}"
+    counts = spack[:, 8].to(torch.int32)
+    assert torch.equal(spack[:, 9].to(torch.int32), incl - counts)
+    live = int(case["n_segs"])
+    assert int(counts[live:].abs().sum()) == 0
+    assert int(incl[-1]) == int(counts.sum()) > 0
+
+
+def test_stroked_frame_makes_no_sync(cuda):
+    """A warm stroked frame (mmark in msaa16, device strokes through the
+    segment preparation and K1's stroke rows) enqueues without one
+    host-device sync: torch's sync-debug mode at "error" raises on any."""
+    params = RenderParams(512, 512, antialiasing="msaa16")
+    rs = resolve(mmark(2, 512.0).encoding, params)
+    r = Renderer(device=cuda)
+    r.render_resolved(rs, params, out="rgba8")
+    frame = r.frame_thunk()
+    frame()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img, overflow = frame()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.launches["segment_prep"] == 1
+    assert int(overflow) == 0 and tuple(img.shape) == (512, 512, 4)
+
+
 def test_over_composite_kernel_matches_plain(cuda):
     """K7 against its plain version on random walks, in place: the same
     arithmetic in the same order, so the bar is equality; tiles with an
@@ -350,8 +418,8 @@ def test_gpu_layered_frame_equals_cpu_frame(cuda):
     assert r.last_profile["layered"]
     counts = dict(kernels.launches)
     want = {k: 0 for k in counts}
-    want.update(flatten=1, expand_touches=1, msaa_coverage=1,
-                composite_over=n_draws)
+    want.update(segment_prep=1, flatten=1, expand_touches=1,
+                msaa_coverage=1, composite_over=n_draws)
     assert counts == want, counts
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     np.testing.assert_array_equal(gpu, cpu)
@@ -394,8 +462,8 @@ def test_gpu_unrolled_layered_frame_equals_scan_frame(cuda, monkeypatch):
     gpu = Renderer(device=cuda).render_resolved(rs, params, out="rgba8")
     counts = dict(kernels.launches)
     want = {k: 0 for k in counts}
-    want.update(flatten=1, expand_touches=1, msaa_coverage=1,
-                composite_over=layered.nonempty_draws(plan),
+    want.update(segment_prep=1, flatten=1, expand_touches=1,
+                msaa_coverage=1, composite_over=layered.nonempty_draws(plan),
                 cumsum=layered.clipped_pushes(plan))
     assert counts == want and want["cumsum"] == 15, counts
     np.testing.assert_array_equal(gpu, scan)
@@ -644,7 +712,8 @@ def test_gpu_speed_frames_equal_cpu_frames(cuda, scene, composite):
     gpu = r.render_resolved(rs, params, out="rgba8")
     counts = dict(kernels.launches)
     want = {k: 0 for k in counts}
-    want.update(flatten=1, expand_touches=1, msaa_coverage=1)
+    want.update(segment_prep=1, flatten=1, expand_touches=1,
+                msaa_coverage=1)
     want[composite] = (layered.nonempty_draws(layered.build_layer_plan(rs)[1])
                        if r.last_profile["layered"] else 1)
     assert counts == want, counts
@@ -692,7 +761,8 @@ def test_gpu_supersampled_frame_equals_cpu_frame(cuda, monkeypatch):
     kernels.reset_launches()
     gpu = r.render(scene, params)
     counts = dict(kernels.launches)
-    used = {"flatten", "expand_touches", "coverage_area", "composite_solid"}
+    used = {"segment_prep", "flatten", "expand_touches", "coverage_area",
+            "composite_solid"}
     assert counts == {k: int(k in used) for k in counts}, counts
     assert r.last_profile["retries"] == 0
     img, overflow = r.frame_thunk()()
@@ -716,8 +786,9 @@ def test_bench_headline_on_the_card(cuda):
     cfg = bench.Settings(complexity=4, size=256, iters=2, batch=2,
                          cold=False)
     head = bench.headline(cfg, cuda)
-    assert head.launches == {"flatten": 1, "expand_touches": 1,
-                             "msaa_coverage": 1, "composite_solid": 1}
+    assert head.launches == {"segment_prep": 1, "flatten": 1,
+                             "expand_touches": 1, "msaa_coverage": 1,
+                             "composite_solid": 1}
     assert head.frame_ms > 0 and not hasattr(head, "device_ms")
     want = Renderer(device=cuda).render_u8(filled_mmark(4, 256.0),
                                            head.params)
@@ -742,7 +813,8 @@ def test_gpu_text_frames_equal_cpu_frames(cuda, scene, composite, aa):
     gpu = Renderer(device=cuda).render_resolved(rs, params, out="rgba8")
     counts = dict(kernels.launches)
     coverage = "msaa_coverage" if aa == "msaa16" else "coverage_area"
-    used = {"flatten", "expand_touches", coverage, composite}
+    used = {"segment_prep", "flatten", "expand_touches", coverage,
+            composite}
     assert counts == {k: int(k in used) for k in counts}, counts
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     diff = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
@@ -772,7 +844,8 @@ def test_gpu_color_glyph_frames_equal_cpu_frames(cuda, kind):
     params = RenderParams(128, 128, base_color=(0.1, 0.1, 0.1, 1.0))
     rs = resolve(s.encoding, params)
     want = {k: 0 for k in kernels.launches}
-    want.update(flatten=1, expand_touches=1, coverage_area=1)
+    want.update(segment_prep=1, flatten=1, expand_touches=1,
+                coverage_area=1)
     if kind == "colr_v1":
         want["composite_over"] = layered.nonempty_draws(
             layered.build_layer_plan(rs)[1])

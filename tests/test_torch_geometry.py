@@ -116,7 +116,7 @@ def _flatten_both(frame):
         np.testing.assert_array_equal(tr[k].numpy(), np.asarray(jr[k]))
     tff = flatten_ops.flatten_fused(
         tb["seg_pts"], tb["seg_kind"], tb["seg_path"], tb["n_segs"],
-        caps.n_lines, width, height, tiling.rect_pack(tr),
+        caps.n_lines, width, height, tr,
         max_lines=rs.max_lines)
     return jff, tff
 

@@ -3,7 +3,8 @@ counts on small inputs: K1's live fill slots, stroke slots and (stroked
 segment, mini) pairs, K2's live touches and the lines they fall in, the
 input bytes K1 and K2 read (the owners' columns and scan entries), K5's
 crossed tile rows and K3's crossed sample rows (the sample rows at
-y + (s + 0.5) / ns of every tile row y)."""
+y + (s + 0.5) / ns of every tile row y), and the bytes the segment
+preparation reads and writes."""
 
 import os
 import sys
@@ -219,3 +220,30 @@ def test_mesh_phase_cases_name_real_counters():
             assert set(used) <= set(kernels.launches)
             assert "flatten" not in used
             assert ("coverage_area_raw" in used) == (aa == "area")
+
+
+@pytest.mark.parametrize("stroked", [False, True])
+def test_segment_prep_bound_reads_each_input_once(stroked):
+    """The segment preparation's bound: bytes alone, each segment's fields,
+    n_segs and each path's 6 rect fields read once, the pack and the count
+    scan written once."""
+    from vello_tpu_torch.ops import kernels, tiling
+    s, p = 50, 7
+    rng = np.random.default_rng(3)
+    pts = torch.from_numpy(rng.uniform(0, 100, (s, 4, 2)).astype(np.float32))
+    kind = torch.from_numpy(rng.integers(1, 4, s).astype(np.int32))
+    path = torch.from_numpy(rng.integers(0, p, s).astype(np.int32))
+    rects = tiling.tile_alloc(torch.from_numpy(
+        rng.integers(0, 5, (p, 4)).astype(np.int32)), 8, 8)
+    hw = torch.full((s,), 2.0) if stroked else None
+    join = torch.ones(s, dtype=torch.int32) if stroked else None
+    args = (pts, kind, path, torch.tensor(s, dtype=torch.int32), rects, hw,
+            join, 64)
+    out = kernels.segment_prep(*args)
+    ms, by, work = chip_smoke.bound("segment_prep", args, out)
+    per_seg = 32 + 4 + 4 + (8 if stroked else 0)
+    cols = 21 if stroked else 16
+    assert by == "bytes" and work["ops"] == 0
+    assert work["bytes"] == s * per_seg + 4 + 24 * p + s * (4 * cols + 4)
+    assert ms == pytest.approx(work["bytes"] / chip_smoke.HBM_BYTES_PER_S
+                               * 1e3)

@@ -18,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+import segment_cases
 import vello_tpu
 import vello_tpu_torch
 from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
@@ -25,12 +26,14 @@ from test_torch_pipeline import stroked_mmark
 from vello_tpu.encoding.resolve import resolve as jax_resolve
 from vello_tpu.models.renderer import pack_buffers as jax_pack_buffers
 from vello_tpu.ops import flatten as jax_flatten
+from vello_tpu.ops import pallas_kernels as jax_pallas_kernels
 from vello_tpu.ops import tiling as jax_tiling
 from vello_tpu_torch import RenderParams, resolve
 from vello_tpu_torch.encoding.config import TILE_H, TILE_W
 from vello_tpu_torch.models.renderer import pack_buffers, to_torch
 from vello_tpu_torch.ops import flatten as flatten_ops
-from vello_tpu_torch.ops import tiling
+from vello_tpu_torch.ops import kernels, tiling
+from vello_tpu_torch.scenes.test_scenes import filled_mmark
 
 SIZE = 128
 BEVEL = dict(join="bevel", start_cap="butt", end_cap="butt")
@@ -82,7 +85,7 @@ def frame(request):
     tr = tiling.tile_alloc(bufs["path_rect"], wt, ht)
     tff = flatten_ops.flatten_fused(
         bufs["seg_pts"], bufs["seg_kind"], bufs["seg_path"], bufs["n_segs"],
-        caps.n_lines, width, height, tiling.rect_pack(tr),
+        caps.n_lines, width, height, tr,
         seg_hw=bufs["seg_hw"], seg_join=bufs["seg_join"],
         max_lines=rs.max_lines)
     return {"name": request.param, "rs": rs, "caps": caps, "bufs": bufs,
@@ -202,3 +205,85 @@ def test_stroke_touches_match_pallas(frame, has_edge):
     np.testing.assert_array_equal(gp[5:], rp[5:])    # backdrop, ftile
     np.testing.assert_allclose(gp[:5], rp[:5], rtol=2e-6, atol=1e-5)
     assert (gp[6] < 2 ** 30).sum() > 0
+
+
+# the segment preparation's cases: the stroke fixtures above, a fill-only
+# scene, fills and strokes in one scene, and segment_cases.SYNTHETIC
+SEGMENT_SCENES = {"stroked_mmark": lambda: stroked_mmark(vello_tpu_torch),
+                  "sharp_turns": lambda: sharp_turns(vello_tpu_torch),
+                  "filled_mmark": lambda: filled_mmark(1, float(SIZE)),
+                  "mixed": lambda: segment_cases.mixed_scene(1, float(SIZE))}
+
+
+@pytest.mark.parametrize("name", sorted(SEGMENT_SCENES)
+                         + list(segment_cases.SYNTHETIC))
+def test_segment_prep_plain_matches_jax(name, monkeypatch):
+    """The segment preparation's plain version (what kernels.segment_prep
+    runs on the CPU) against the JAX package on the same segment arrays:
+    its elevate_to_cubic, wang_counts and stroke_mini_counts, and the
+    segment fields its flatten_fused hands to the Pallas flatten. The
+    cubic, counts, offsets, scan, rects, half-widths, mini counts and join
+    flags exactly equal; the join normals within the coordinate bar
+    (XLA-CPU contracts a*b+c into a fused multiply-add)."""
+    case = (segment_cases.synthetic_case(name)
+            if name in segment_cases.SYNTHETIC
+            else segment_cases.scene_case(SEGMENT_SCENES[name](), SIZE))
+    stroked = "seg_hw" in case
+    assert stroked == (not name.endswith(("_fill", "filled_mmark")))
+    keys = ("seg_pts", "seg_kind", "seg_path", "n_segs", "path_rect") + (
+        ("seg_hw", "seg_join") if stroked else ())
+    t = {k: torch.from_numpy(np.asarray(case[k])) for k in keys}
+    j = {k: jnp.asarray(case[k]) for k in keys}
+    rects = tiling.tile_alloc(t["path_rect"], case["wt"], case["ht"])
+    args = (t["seg_pts"], t["seg_kind"], t["seg_path"], t["n_segs"], rects,
+            t.get("seg_hw"), t.get("seg_join"), case["max_lines"])
+    kernels.reset_launches()
+    spack, incl = kernels.segment_prep(*args)
+    assert kernels.launches["segment_prep"] == 0      # CPU: plain
+    pspack, pincl = kernels.segment_prep_plain(*args)
+    assert torch.equal(spack, pspack) and torch.equal(incl, pincl)
+    s = case["seg_kind"].shape[0]
+    assert spack.shape == (s, 21 if stroked else 16)
+    assert incl.dtype == torch.int32
+
+    captured = {}
+
+    def capture(spackT, s0s, n_lines_cap, *rest, **kw):
+        captured["spackT"] = np.asarray(spackT)
+        return jnp.zeros((16, n_lines_cap), jnp.float32)
+
+    monkeypatch.setattr(jax_pallas_kernels, "flatten_pallas", capture)
+    jr = jax_tiling.tile_alloc(j["path_rect"], case["wt"], case["ht"])
+    jax_flatten.flatten_fused(
+        j["seg_pts"], j["seg_kind"], j["seg_path"], j["n_segs"], 1024,
+        1024.0, 1024.0, jax_tiling.rect_pack(jr), seg_hw=j.get("seg_hw"),
+        seg_join=j.get("seg_join"), interpret=True,
+        max_lines=case["max_lines"])
+    ref = captured["spackT"][:, :s].T                 # (S, 24)
+    got = spack.numpy()
+    # the JAX rows [cub8, count, offs, incl, rect6, hw, jnx, jny, m, join]
+    np.testing.assert_array_equal(got[:, :10], ref[:, :10])
+    np.testing.assert_array_equal(incl.numpy(), ref[:, 10])
+    np.testing.assert_array_equal(got[:, 10:16], ref[:, 11:17])
+    jcub = jax_flatten.elevate_to_cubic(j["seg_pts"], j["seg_kind"])
+    np.testing.assert_array_equal(got[:, :8],
+                                  np.asarray(jcub).reshape(s, 8))
+    live = np.arange(s) < int(case["n_segs"])
+    want = np.asarray(jax_flatten.wang_counts(jcub, j["seg_kind"],
+                                              max_lines=case["max_lines"]))
+    if stroked:
+        hw = case["seg_hw"]
+        jm = np.asarray(jax_flatten.stroke_mini_counts(
+            jcub, j["seg_hw"], max_lines=case["max_lines"]))
+        jm = np.where(hw > 0, jm, 0)
+        want = np.where(hw > 0, jm * flatten_ops.STROKE_SLOTS, want)
+        np.testing.assert_array_equal(got[:, 19], jm)
+        np.testing.assert_array_equal(got[:, [16, 19, 20]],
+                                      ref[:, [17, 20, 21]])
+        np.testing.assert_allclose(got[:, 17:19], ref[:, 18:20], rtol=2e-6,
+                                   atol=1e-5)
+        joined = got[:, 20] > 0
+        assert joined.any() and (got[:, 20] == 0).any()
+        if name in segment_cases.SYNTHETIC:
+            assert joined[-1]        # the last segment's join wraps to 0
+    np.testing.assert_array_equal(got[:, 8], np.where(live, want, 0))

@@ -1,16 +1,17 @@
 """Device-side flattening: curves -> line soup with viewport clipping
 (counterpart of ``vello_tpu/ops/flatten.py``).
 
-Fused path (``flatten_fused``): segment-scale work (degree elevation, Wang
-counts, stroke mini counts and join normals, the count scan) is PyTorch;
-the per-line work (cubic evaluation at uniform t, stroke slot lines, y
-trim, x clamp, left-edge detection, DDA touch counts) is kernel K1 in
-``ops/kernels.py``. Unfused path (``flatten``, under
-``VELLO_TPU_NO_FUSED_GEOM``): the JAX package's XLA formulation in library
-PyTorch, from the decoded tag slots to the line soup and its left-edge
-verticals. The f32 op order follows the JAX package so that counts agree
-bit for bit with it and with the host estimator; ``rsqrt`` is
-``1 / sqrt`` (correctly rounded on both devices, as XLA lowers it).
+Fused path (``flatten_fused``): the segment-scale work (degree elevation,
+Wang counts, stroke mini counts and join normals, the count scan, the
+segment pack) is ``kernels.segment_prep``; the per-line work (cubic
+evaluation at uniform t, stroke slot lines, y trim, x clamp, left-edge
+detection, DDA touch counts) is kernel K1, ``kernels.flatten_lines``.
+Unfused path (``flatten``, under ``VELLO_TPU_NO_FUSED_GEOM``): the JAX
+package's XLA formulation in library PyTorch, from the decoded tag slots
+to the line soup and its left-edge verticals. The f32 op order follows
+the JAX package so that counts agree bit for bit with it and with the host
+estimator; ``rsqrt`` is ``1 / sqrt`` (correctly rounded on both devices,
+as XLA lowers it).
 """
 
 from __future__ import annotations
@@ -171,8 +172,9 @@ def stroke_mini_counts(cub, hw_dev, tol: float = FLATTEN_TOL,
 
     dtheta = ang(v0, v1) + ang(v1, v2)
     # a tensor numerator: torch turns scalar / tensor into reciprocal *
-    # scalar, which rounds twice
-    num = torch.tensor(8.0 * tol, dtype=torch.float32, device=cub.device)
+    # scalar, which rounds twice; filled on the device, so that no copy
+    # from the host waits for the frame in flight
+    num = torch.full((), 8.0 * tol, dtype=torch.float32, device=cub.device)
     theta_max = torch.sqrt(num / torch.clamp_min(hw_dev, tol))
     m_turn = torch.ceil(dtheta / theta_max)
     return torch.maximum(wang, m_turn).clamp(1, max_lines).to(torch.int32)
@@ -205,36 +207,19 @@ def _stroke_rows(cub, seg_hw, seg_join, max_lines: int, is_stroke=None):
 
 
 def flatten_fused(seg_pts, seg_kind, seg_path, n_segs, n_lines_cap: int,
-                  width: float, height: float, rpack, seg_hw=None,
+                  width: float, height: float, rects, seg_hw=None,
                   seg_join=None, max_lines: int = MAX_LINES_PER_SEG) -> dict:
     """Host-compacted, transform-folded segments -> the (16, L) line pack
     [qx0, qy0, qx1, qy1, down, tcount, live, crossing, ev_y0, ev_y1,
-    rect6] (see ``kernels.flatten_lines``). With ``seg_hw`` (S,) f32
-    half-widths (pre-scaled by the host; 0 for a filled segment) and
-    ``seg_join`` (S,) i32 continuation flags, stroked segments emit 7
-    lines per centerline mini (device stroke expansion). Returns
-    {"linepack", "total_lines", "overflow"}; overflow is 1 when the lines
-    exceed the cap."""
-    cub = elevate_to_cubic(seg_pts, seg_kind)
-    counts = wang_counts(cub, seg_kind, max_lines=max_lines)
-    s = cub.shape[0]
-    srows = []
-    if seg_hw is not None:
-        st_counts, is_stroke, scols = _stroke_rows(cub, seg_hw, seg_join,
-                                                   max_lines)
-        counts = torch.where(is_stroke, st_counts, counts)
-        srows = [scols]
-    live_seg = torch.arange(s, dtype=torch.int32, device=cub.device) < n_segs
-    counts = torch.where(live_seg, counts, torch.zeros_like(counts))
-    incl = torch.cumsum(counts, 0, dtype=torch.int32)
+    rect6] (see ``kernels.flatten_lines``). ``rects``: the per-path tile
+    rects of ``tiling.tile_alloc``. With ``seg_hw`` (S,) f32 half-widths
+    (pre-scaled by the host; 0 for a filled segment) and ``seg_join`` (S,)
+    i32 continuation flags, stroked segments emit 7 lines per centerline
+    mini (device stroke expansion). Returns {"linepack", "total_lines",
+    "overflow"}; overflow is 1 when the lines exceed the cap."""
+    spack, incl = kernels.segment_prep(seg_pts, seg_kind, seg_path, n_segs,
+                                       rects, seg_hw, seg_join, max_lines)
     total = incl[-1]
-    offs = incl - counts
-    pclip = seg_path.long().clamp(0, rpack.shape[0] - 1)
-    spack = torch.cat([
-        cub.reshape(s, 8),
-        counts.to(torch.float32)[:, None],
-        offs.to(torch.float32)[:, None],
-        rpack[pclip]] + srows, dim=1).contiguous()          # (S, 16 | 21)
     linepack = kernels.flatten_lines(spack, incl, n_lines_cap, width, height)
     return {"linepack": linepack, "total_lines": total,
             "overflow": (total > n_lines_cap).to(torch.int32)}

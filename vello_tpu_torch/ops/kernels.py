@@ -18,7 +18,9 @@ plain PyTorch version (counterpart of ``vello_tpu/ops/pallas_kernels.py``).
 - K7 layered draws op: ``composite_over`` (``csrc/composite_over.cu``),
   plain ``fine.composite_over_plain``, on f32 or bf16 src;
 - K8 column cumsum: ``cumsum0`` (``csrc/cumsum.cu``), plain
-  ``cumsum0_plain``.
+  ``cumsum0_plain``;
+- the fused geometry's segment preparation, before K1: ``segment_prep``
+  (``csrc/segment_prep.cu``), plain ``segment_prep_plain``.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel on the current stream or raises; there is no other
@@ -38,9 +40,11 @@ import os
 import shutil
 import subprocess
 
+import numpy as np
 import torch
 
-from ..encoding.config import TILE_H, TILE_W
+from ..encoding.config import (FLATTEN_TOL, MAX_LINES_PER_SEG, TILE_H,
+                               TILE_W)
 from .fine import (NPX, composite_over_plain, composite_solid_plain,
                    composite_src_plain, coverage_area_plain,
                    coverage_area_raw_plain, msaa_coverage_plain)
@@ -52,7 +56,7 @@ BUILD = os.path.join(_PKG, "build")
 LIB = os.path.join(BUILD, "libvello_kernels.so")
 SOURCES = ("flatten.cu", "expand_touches.cu", "msaa_coverage.cu",
            "composite_solid.cu", "coverage_area.cu", "composite_src.cu",
-           "composite_over.cu", "cumsum.cu")
+           "composite_over.cu", "cumsum.cu", "segment_prep.cu")
 # --fmad=false: no a*b+c contraction, so the geometry kernels round every
 # op as the plain versions and the JAX package do (their floors must agree
 # with the host estimator); IEEE division and sqrt are nvcc's defaults.
@@ -113,7 +117,7 @@ launches = {"flatten": 0, "expand_touches": 0, "msaa_coverage": 0,
             "composite_solid": 0, "coverage_area": 0,
             "coverage_area_raw": 0, "composite_src": 0,
             "composite_src_bf16": 0, "composite_over": 0,
-            "composite_over_bf16": 0, "cumsum": 0}
+            "composite_over_bf16": 0, "cumsum": 0, "segment_prep": 0}
 
 _lib = None
 
@@ -197,6 +201,9 @@ def _load():
                 "vt_composite_over": [P, P, P, I, P, P],
                 "vt_composite_over_bf16": [P, P, P, I, P, P],
                 "vt_cumsum": [P, L, I, I, P, P, P],
+                "vt_segment_prep": [P, P, P, P, P, P, P, P, P, P, I, P, P,
+                                    I, I, F, F, F, P, P, P],
+                "vt_segment_offsets": [P, P, P, I, I, P],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)
@@ -249,12 +256,12 @@ def _check_rows_aligned(trow):
         raise ValueError("trow must start on a 16-byte boundary")
 
 
-def _launch(name, fn, *args):
+def _call(name, fn, *args):
     """Call a C launcher with tensors passed as device pointers, on the
-    current stream; raise on a failed launch, count a good one. Under a
-    profiler the call runs in an op-level range ``vt_<name>``: the profiler
-    links a kernel to the op that launched it, and a user range such as a
-    pipeline stage is not an op."""
+    current stream; raise on a failed launch. Under a profiler the call
+    runs in an op-level range ``vt_<name>``: the profiler links a kernel to
+    the op that launched it, and a user range such as a pipeline stage is
+    not an op."""
     args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream().cuda_stream
     if torch.autograd._profiler_enabled():
@@ -264,6 +271,11 @@ def _launch(name, fn, *args):
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _launch(name, fn, *args):
+    """``_call``, and count the launch under ``name``."""
+    _call(name, fn, *args)
     launches[name] += 1
 
 
@@ -707,3 +719,97 @@ def cumsum0_plain(x):
     once. On the CPU this is torch.cumsum(x, 0) bit for bit (it accumulates
     f32 in f64); on the card torch.cumsum accumulates in f32."""
     return torch.cumsum(x, 0, dtype=torch.float64).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# The fused geometry's segment preparation (no TPU kernel: the JAX
+# package's XLA fuses the same segment-scale chain)
+
+# the f32 constants of the Wang and turning-angle bounds at FLATTEN_TOL:
+# PyTorch on CUDA divides a tensor by a Python scalar as a multiply by the
+# scalar's f32 reciprocal (see csrc/segment_prep.cu)
+_INV_8TOL = float(np.float32(1.0) / np.float32(8.0 * FLATTEN_TOL))
+RECT_FIELDS = ("tx0", "ty0", "tx1", "ty1", "stride", "base")
+
+
+def segment_prep(seg_pts, seg_kind, seg_path, n_segs, rects, seg_hw=None,
+                 seg_join=None, max_lines: int = MAX_LINES_PER_SEG):
+    """Host-compacted, transform-folded segments -> (spack (S, 16) f32, or
+    (S, 21) with ``seg_hw``, incl (S,) i32): per segment [8 cubic coords,
+    count, offs, rect6] and, with strokes, [hw, jnx, jny, m, join] (the
+    pack ``flatten_lines`` reads), and the inclusive scan of the counts.
+    seg_pts (S, 4, 2) f32, seg_kind/seg_path (S,) i32, n_segs one i32 (0-d
+    or (1,); the segments at or past it count no lines), rects the
+    per-path dict of ``tiling.tile_alloc`` (RECT_FIELDS, (P,) i32 each,
+    P >= 1), seg_hw (S,) f32 half-widths (0 for a fill), seg_join (S,) i32
+    (see ``segment_prep_plain``). On the card: one launch of the preparation,
+    torch.cumsum of the counts, one launch writing offs = incl - counts;
+    nothing is read back."""
+    cols = [rects[k] for k in RECT_FIELDS]
+    stroke = [] if seg_hw is None else [seg_hw, seg_join]
+    if _on_cpu(seg_pts, seg_kind, seg_path, n_segs, *cols, *stroke):
+        return segment_prep_plain(seg_pts, seg_kind, seg_path, n_segs,
+                                  rects, seg_hw, seg_join, max_lines)
+    s = seg_kind.shape[0]
+    p = cols[0].shape[0]
+    _check(seg_pts, "seg_pts", torch.float32, (s, 4, 2))
+    _check(seg_kind, "seg_kind", torch.int32, (s,))
+    _check(seg_path, "seg_path", torch.int32, (s,))
+    if n_segs.dtype != torch.int32 or n_segs.numel() != 1:
+        raise ValueError(f"n_segs: {n_segs.dtype} {tuple(n_segs.shape)}, "
+                         f"expected one int32")
+    for k, t in zip(RECT_FIELDS, cols):
+        _check(t, k, torch.int32, (p,))
+    if seg_hw is not None:
+        _check(seg_hw, "seg_hw", torch.float32, (s,))
+        _check(seg_join, "seg_join", torch.int32, (s,))
+    width = 16 if seg_hw is None else 21
+    counts = torch.empty(s, dtype=torch.int32, device=seg_pts.device)
+    spack = torch.empty((s, width), dtype=torch.float32,
+                        device=seg_pts.device)
+    if not s:
+        return spack, counts
+    lib = _load()
+    _launch("segment_prep", lib.vt_segment_prep, seg_pts, seg_kind, seg_path,
+            n_segs, *cols, p, seg_hw, seg_join, s, max_lines, _INV_8TOL,
+            FLATTEN_TOL, 8.0 * FLATTEN_TOL, counts, spack)
+    incl = torch.cumsum(counts, 0, dtype=torch.int32)
+    _call("segment_prep", lib.vt_segment_offsets, counts, incl, spack, s,
+          width)
+    return spack, incl
+
+
+def segment_prep_plain(seg_pts, seg_kind, seg_path, n_segs, rects,
+                       seg_hw=None, seg_join=None,
+                       max_lines: int = MAX_LINES_PER_SEG):
+    """Plain version of the segment preparation: degree elevation, Wang
+    counts and, with ``seg_hw``, stroke mini counts (7 lines per mini) and
+    join normals (the NEXT segment's first-chord normal, where
+    ``seg_join`` is set: the kernel's bevel corner then matches the next
+    quad's), counts zeroed from ``n_segs`` on, their scan, and the path
+    rects gathered per segment. On the card it rounds as the kernel does:
+    a tensor divided by a Python scalar is a multiply by its reciprocal
+    there."""
+    from .flatten import _stroke_rows, elevate_to_cubic, wang_counts
+    from .tiling import rect_pack
+    cub = elevate_to_cubic(seg_pts, seg_kind)
+    counts = wang_counts(cub, seg_kind, max_lines=max_lines)
+    s = cub.shape[0]
+    srows = []
+    if seg_hw is not None:
+        st_counts, is_stroke, scols = _stroke_rows(cub, seg_hw, seg_join,
+                                                   max_lines)
+        counts = torch.where(is_stroke, st_counts, counts)
+        srows = [scols]
+    live_seg = torch.arange(s, dtype=torch.int32, device=cub.device) < n_segs
+    counts = torch.where(live_seg, counts, torch.zeros_like(counts))
+    incl = torch.cumsum(counts, 0, dtype=torch.int32)
+    offs = incl - counts
+    rpack = rect_pack(rects)
+    pclip = seg_path.long().clamp(0, rpack.shape[0] - 1)
+    spack = torch.cat([
+        cub.reshape(s, 8),
+        counts.to(torch.float32)[:, None],
+        offs.to(torch.float32)[:, None],
+        rpack[pclip]] + srows, dim=1).contiguous()          # (S, 16 | 21)
+    return spack, incl

@@ -38,9 +38,8 @@ def tile_alloc(path_rect: torch.Tensor, width_tiles: int,
 
 def rect_pack(rects: dict) -> torch.Tensor:
     """(P, 6) f32 [tx0, ty0, tx1, ty1, stride, base] per path."""
-    return torch.stack([rects[k].to(torch.float32) for k in
-                        ("tx0", "ty0", "tx1", "ty1", "stride", "base")],
-                       dim=-1)
+    return torch.stack([rects[k].to(torch.float32)
+                        for k in kernels.RECT_FIELDS], dim=-1)
 
 
 def _dda_params(lines: torch.Tensor) -> dict:

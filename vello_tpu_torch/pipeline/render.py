@@ -176,7 +176,7 @@ def _geometry(bufs, static, caps, rects, W, H, geom=None):
         with stage("s02_flatten"):
             ff = flatten_ops.flatten_fused(
                 bufs["seg_pts"], bufs["seg_kind"], bufs["seg_path"],
-                bufs["n_segs"], caps.n_lines, W, H, tiling.rect_pack(rects),
+                bufs["n_segs"], caps.n_lines, W, H, rects,
                 seg_hw=bufs["seg_hw"] if static.has_stroke else None,
                 seg_join=bufs["seg_join"] if static.has_stroke else None,
                 max_lines=static.max_lines)
