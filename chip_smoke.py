@@ -53,8 +53,9 @@ Phases (any failure exits non-zero):
      n. msaa8_supersampled: the same in msaa8, a 4800x4800 centers frame
         and a 3x3 resolve;
      each with overflow 0, no retry, the host's tier and one launch of each
-     of its kernels (the fused paths' segment preparation before K1 too;
-     K7: as many as the plan's non-empty draws ops; K8: as many as its
+     of its kernels (the fused paths' segment preparation before K1 too,
+     and every flat path's occlusion walk before K4 or K6; K7: as many as
+     the plan's non-empty draws ops; K8: as many as its
      clipped pushes); first-frame and warm per-frame times, peak memory;
      Renderer.profile's device ms per stage, held to cover all but 5% of
      the device time with each kernel under its stage (K1 and the segment
@@ -79,10 +80,17 @@ Phases (any failure exits non-zero):
      the segment preparation before K1 (segment_prep: its two kernels and
      the torch.cumsum between them) twice, on the msaa16 frame's fill-only
      segments and the stroked frame's, its pack and count scan bit-equal to
-     its plain version's, bound by bytes alone), with times for both (CUDA
-     events, and the kernel's profiled time), the least time the card
-     could take and, for K8, torch.cumsum's time; the paint evaluation's
-     time on the gradient frame's inputs;
+     its plain version's, bound by bytes alone; the occlusion walk's starts
+     (occlusion_los_<path>) on the msaa16, stroked and gradient_image
+     frames' inputs, bit-equal, bound by bytes alone: the opaque rows of
+     each [los, his), their flags, the ranges and los), with times for
+     both (CUDA events, and the kernel's profiled time), the least time
+     the card could take and, for K8, torch.cumsum's time, for the
+     occlusion walk its plain version's (the amin and cummax chain that
+     the frame ran before) and how often the walk engages (the share of
+     tiles with a full opaque cover, of live rows below one); the synced
+     warm ms of those frames and of the layered one, which bypasses the
+     walk; the paint evaluation's time on the gradient frame's inputs;
   5. 512x512 frames of all fourteen paths' scenes (speed, unfused and
      centers included; the supersampled paths on filled_mmark(1, 128.) at
      128x128, also held within 2.5e-3 mean abs of the port's oracle), and
@@ -143,7 +151,9 @@ Phases (any failure exits non-zero):
      sys.modules[name] = None for the three before it imports the port.
      Through Renderer(device="cuda").render at 1024x1024 (the
      TEXT_CELLS): (a) text_heavy at its defaults (40 lines of 14 px white
-     on the base, area: K1 fill rows, K2, K5, K4); (b) the same in msaa16
+     on the base, area: K1 fill rows, K2, K5, K4; its occlusion walk held
+     equal to its plain version, with its time, bound, the plain
+     version's time and how often it engages); (b) the same in msaa16
      (K1, K2, K3, K4); (c) text_scene(1024.) (its gradient run through
      eval_paints and K6: K1, K2, K5, K6); (d) glyph_runs, accented text
      (composite glyphs) filled, stroked (Stroke(width=1.5, join="round"):
@@ -212,6 +222,8 @@ WARM_FRAMES = 20
 # scalar code, so the f32 rate is the operations bound.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the least the card reads from HBM at once (an L2 sector)
+DRAM_SECTOR_BYTES = 32
 
 # entry of the kernels line -> (launch counter, wrapper, plain version,
 # CUDA source, the TPU kernel it replaces, the path whose inputs it is
@@ -287,6 +299,14 @@ KERNELS = {
                              "none (vello_tpu/ops/flatten.py:222)",
                              "stroked"),
 }
+# the occlusion walk's starts (no TPU kernel: the JAX package's XLA runs a
+# cummax over every fragment), on three frames' inputs: entry
+# occlusion_los_<path>
+for _path in ("msaa16", "stroked", "gradient_image"):
+    KERNELS[f"occlusion_los_{_path}"] = (
+        "occlusion_los", "occlusion_los", "occlusion_los_plain",
+        "vello_tpu_torch/csrc/composite_solid.cu",
+        "none (vello_tpu/pipeline/render.py:580)", _path)
 # the centers paths' four kernels, each held on its path's inputs: entry
 # <kernel>_<path> (K5 with its centers threshold)
 CENTERS_PATHS = ("centers", "msaa16_supersampled", "msaa8_supersampled")
@@ -330,6 +350,7 @@ KERNEL_STAGES = {
                 "cumsum_rows_kernel"), "s21_op_push"),
     "segment_prep": (("segment_prep_kernel", "segment_offsets_kernel"),
                      "s02_flatten"),
+    "occlusion_los": (("occlusion_los_kernel",), "s09b_occlusion"),
 }
 
 # frame path -> (scene, antialiasing, the launch counters of its kernels);
@@ -341,16 +362,16 @@ KERNEL_STAGES = {
 PATHS = {
     "msaa16": ("filled_mmark", "msaa16",
                ("segment_prep", "flatten", "expand_touches", "msaa_coverage",
-                "composite_solid")),
+                "occlusion_los", "composite_solid")),
     "area": ("filled_mmark", "area",
              ("segment_prep", "flatten", "expand_touches", "coverage_area",
-              "composite_solid")),
+              "occlusion_los", "composite_solid")),
     "gradient_image": ("mixed_paint_mmark", "msaa16",
                        ("segment_prep", "flatten", "expand_touches",
-                        "msaa_coverage", "composite_src")),
+                        "msaa_coverage", "occlusion_los", "composite_src")),
     "stroked": ("mmark", "msaa16",
                 ("segment_prep", "flatten", "expand_touches", "msaa_coverage",
-                 "composite_solid")),
+                 "occlusion_los", "composite_solid")),
     "layered": ("layered_mmark", "msaa16",
                 ("segment_prep", "flatten", "expand_touches", "msaa_coverage",
                  "composite_over")),
@@ -359,28 +380,31 @@ PATHS = {
                           "msaa_coverage", "composite_over", "cumsum")),
     "msaa16_speed": ("filled_mmark", "msaa16",
                      ("segment_prep", "flatten", "expand_touches",
-                      "msaa_coverage", "composite_solid")),
+                      "msaa_coverage", "occlusion_los", "composite_solid")),
     "gradient_image_speed": ("mixed_paint_mmark", "msaa16",
                              ("segment_prep", "flatten", "expand_touches",
-                              "msaa_coverage", "composite_src_bf16")),
+                              "msaa_coverage", "occlusion_los",
+                              "composite_src_bf16")),
     "layered_speed": ("layered_mmark", "msaa16",
                       ("segment_prep", "flatten", "expand_touches",
                        "msaa_coverage", "composite_over_bf16")),
     "msaa16_unfused": ("filled_mmark", "msaa16",
                        ("expand_touches", "msaa_coverage",
-                        "composite_solid")),
+                        "occlusion_los", "composite_solid")),
     "stroked_unfused": ("mmark", "msaa16",
                         ("expand_touches", "msaa_coverage",
-                         "composite_solid")),
+                         "occlusion_los", "composite_solid")),
     "centers": ("filled_mmark", "centers",
                 ("segment_prep", "flatten", "expand_touches", "coverage_area",
-                 "composite_solid")),
+                 "occlusion_los", "composite_solid")),
     "msaa16_supersampled": ("filled_mmark", "msaa16",
                             ("segment_prep", "flatten", "expand_touches",
-                             "coverage_area", "composite_solid")),
+                             "coverage_area", "occlusion_los",
+                             "composite_solid")),
     "msaa8_supersampled": ("filled_mmark", "msaa8",
                            ("segment_prep", "flatten", "expand_touches",
-                            "coverage_area", "composite_solid")),
+                            "coverage_area", "occlusion_los",
+                            "composite_solid")),
 }
 UNROLLED = "VELLO_TPU_UNROLLED_LAYERS"
 NO_FUSED_GEOM = "VELLO_TPU_NO_FUSED_GEOM"
@@ -855,6 +879,44 @@ def touch_units(incl, n_touches) -> dict:
             "read_bytes": 4 * TOUCH_LINE_ROWS * lines + _scan_bytes(live)}
 
 
+def occlusion_units(cov, opaque, starts, los) -> dict:
+    """The occlusion walk's work: tiles and those with a full opaque cover,
+    the rows in the tiles' ranges and those below ``los`` (hidden: no walk
+    reads them), the rows a walk must look at (the opaque rows of [los,
+    his): the cover and each opaque row above it), and the least bytes of
+    its inputs that settle them: each cover's whole row, one DRAM sector
+    (holding a value below the threshold) of every other such row, the
+    opaque flags of [los, his) and the ranges."""
+    from vello_tpu_torch.ops.kernels import FULL_COVER
+    lo, hi = starts[:-1].long(), starts[1:].long()
+    keep = torch.zeros(cov.shape[0] + 1, dtype=torch.int64,
+                       device=cov.device)
+    keep.index_add_(0, los.long(), torch.ones_like(lo))
+    keep.index_add_(0, hi, -torch.ones_like(hi))
+    walked = torch.cumsum(keep, 0)[:-1] > 0          # in some [los, his)
+    at = los.long().clamp_max(max(cov.shape[0] - 1, 0))
+    cover = ((hi > lo) & opaque[at] & (cov[at].amin(dim=1) >= FULL_COVER)
+             if cov.shape[0] else torch.zeros_like(lo, dtype=torch.bool))
+    rows = int((walked & opaque).sum())
+    covers = int(cover.sum())
+    return {"tiles": int(lo.shape[0]), "tiles_with_cover": covers,
+            "live_rows": int((hi - lo).sum()),
+            "hidden_rows": int((los.long() - lo).sum()),
+            "walked_rows": rows,
+            "read_bytes": covers * cov.shape[1] * cov.element_size()
+            + (rows - covers) * DRAM_SECTOR_BYTES + int(walked.sum())
+            + _nbytes(starts)}
+
+
+def print_walk_shares(name, work):
+    """How often the occlusion walk engages on a frame's inputs."""
+    print(f"{name}: tiles with a full opaque cover "
+          f"{work['tiles_with_cover'] / max(work['tiles'], 1):.4f} of "
+          f"{work['tiles']}; live rows left unread (below a cover) "
+          f"{work['hidden_rows'] / max(work['live_rows'], 1):.4f} of "
+          f"{work['live_rows']}")
+
+
 def bound(name, args, out):
     """(least ms, "bytes" or "operations", the work counted) for one launch
     on these inputs: each input read once (of a composite's fragment rows,
@@ -898,6 +960,10 @@ def bound(name, args, out):
         ops = walked * 256 * OPS_PER_OVER_COMPOSITE
     elif name.startswith("cumsum"):
         ops = args[0].numel()            # one add per element
+    elif name.startswith("occlusion_los"):
+        units = occlusion_units(*args, out)
+        nbytes = units["read_bytes"] + _nbytes(out)
+        ops = 0
     elif name.startswith("segment_prep"):
         # bytes: each segment's fields, each path's 6 rect fields (i32) and
         # n_segs read once, the pack and the count scan written once
@@ -963,7 +1029,8 @@ def compare(name, got, ref):
         fail(f"{name}: shape {got.shape} vs {ref.shape} or non-finite")
     err = float(np.abs(got - ref).max()) if got.size else 0.0
     if name.startswith(("flatten", "expand_touches", "msaa_coverage",
-                        "coverage_area_raw", "segment_prep")):
+                        "coverage_area_raw", "segment_prep",
+                        "occlusion_los")):
         if not np.array_equal(got, ref):
             fail(f"{name}: differs from the plain version (max abs err "
                  f"{err}; expected bit-equal)")
@@ -1154,7 +1221,7 @@ def golden_diff(name, img, png=None):
 def corpus_launches(rs, counters):
     """The launches one frame of a resolved scene takes in area AA: K1, K2
     and K5 once; then K7 once per non-empty draws op of a layered scene,
-    or K4 (solid paints only) or K6 once."""
+    or the occlusion walk and K4 (solid paints only) or K6 once."""
     from vello_tpu_torch.encoding.encoding import (DRAW_BEGIN_LAYER,
                                                    DRAW_END_LAYER)
     from vello_tpu_torch.pipeline import layered
@@ -1166,9 +1233,9 @@ def corpus_launches(rs, counters):
         out["composite_over"] = layered.nonempty_draws(
             layered.build_layer_plan(rs)[1])
     elif set(int(k) for k in rs.paint_kind) <= {0}:
-        out["composite_solid"] = 1
+        out.update(composite_solid=1, occlusion_los=1)
     else:
-        out["composite_src"] = 1
+        out.update(composite_src=1, occlusion_los=1)
     return out
 
 
@@ -1260,18 +1327,20 @@ def run_corpus(kernels, Renderer, RenderParams, resolve):
 # NCCL.
 MESH_CASES = {
     "mesh_msaa16": ("filled_mmark", "msaa16", 2, 2, (2, 3),
-                    ("expand_touches", "msaa_coverage", "composite_solid")),
+                    ("expand_touches", "msaa_coverage", "occlusion_los",
+                     "composite_solid")),
     "mesh_area": ("filled_mmark", "area", 1, 2, (2,),
                   ("expand_touches", "coverage_area_raw",
-                   "composite_solid")),
+                   "occlusion_los", "composite_solid")),
     "mesh_gradient_image": ("mixed_paint_mmark", "msaa16", 1, 2, (2,),
                             ("expand_touches", "msaa_coverage",
-                             "composite_src")),
+                             "occlusion_los", "composite_src")),
     "mesh_layered": ("layered_mmark", "msaa16", 1, 2, (2,),
                      ("expand_touches", "msaa_coverage",
                       "composite_over")),
     "mesh_nccl": ("filled_mmark", "msaa16", 1, 1, (2,),
-                  ("expand_touches", "msaa_coverage", "composite_solid")),
+                  ("expand_touches", "msaa_coverage", "occlusion_los",
+                   "composite_solid")),
 }
 # (backend, world size, its cases)
 MESH_WORLDS = (("gloo", 4, ("mesh_msaa16",)),
@@ -1300,19 +1369,20 @@ TEXT_CHECK_SIZE = 512
 TEXT_CELLS = {
     "text_heavy": ("text_heavy", "area",
                    ("segment_prep", "flatten", "expand_touches",
-                    "coverage_area", "composite_solid")),
+                    "coverage_area", "occlusion_los", "composite_solid")),
     "text_heavy_msaa16": ("text_heavy", "msaa16",
                           ("segment_prep", "flatten", "expand_touches",
-                           "msaa_coverage", "composite_solid")),
+                           "msaa_coverage", "occlusion_los",
+                           "composite_solid")),
     "text_scene": ("text_scene", "area",
                    ("segment_prep", "flatten", "expand_touches",
-                    "coverage_area", "composite_src")),
+                    "coverage_area", "occlusion_los", "composite_src")),
     "glyph_runs": ("glyph_runs", "area",
                    ("segment_prep", "flatten", "expand_touches",
-                    "coverage_area", "composite_solid")),
+                    "coverage_area", "occlusion_los", "composite_solid")),
     "glyph_raster": ("glyph_raster", "area",
                      ("segment_prep", "flatten", "expand_touches",
-                      "coverage_area", "composite_src")),
+                      "coverage_area", "occlusion_los", "composite_src")),
     # the emoji pickers (PICKERS): COLR v1 glyphs through the layered
     # compositor, K7 once per non-empty draws op; bitmap strikes as image
     # rects (K6)
@@ -1321,7 +1391,7 @@ TEXT_CELLS = {
                       "coverage_area", "composite_over")),
     "bitmap_glyphs": ("bitmap_glyphs", "area",
                       ("segment_prep", "flatten", "expand_touches",
-                       "coverage_area", "composite_src")),
+                       "coverage_area", "occlusion_los", "composite_src")),
 }
 # an emoji picker, as a chat client or an OS draws one: a DejaVu header
 # line over PICKER_ROWS x PICKER_COLS color glyphs at PICKER_PX (scaled by
@@ -1790,6 +1860,27 @@ def run_text_cell(cell, kernels, Renderer, RenderParams, resolve,
         extra = {"composite_src": {"max_abs_err": err,
                                    "in_frame_ms": in_frame["composite_src"],
                                    "bound_ms": bound_ms}}
+    if cell == "text_heavy":
+        # the occlusion walk on the text page's inputs
+        (kargs, kw), = capture_calls(kernels, frame,
+                                     ["occlusion_los"]).values()
+        err = hold_exact(cell, "occlusion_los", kernels.occlusion_los,
+                         kernels.occlusion_los_plain, kargs, kw)
+        ms = cuda_ms(lambda: kernels.occlusion_los(*kargs, **kw), 20)
+        library_ms = cuda_ms(
+            lambda: kernels.occlusion_los_plain(*kargs, **kw), 3)
+        bound_ms, _, work = bound("occlusion_los", kargs,
+                                  kernels.occlusion_los(*kargs, **kw))
+        print(f"[{cell}] occlusion_los: max abs err {err} kernel_ms "
+              f"{ms:.4f} in_frame_profiled_ms "
+              f"{in_frame['occlusion_los']:.4f} bound_ms {bound_ms:.4f} "
+              f"(bytes) share {bound_ms / ms:.3f} library_ms "
+              f"{library_ms:.4f} work {work}")
+        print_walk_shares(f"[{cell}] occlusion_los", work)
+        extra = {"occlusion_los": {"max_abs_err": err, "ms": ms,
+                                   "in_frame_ms": in_frame["occlusion_los"],
+                                   "bound_ms": bound_ms,
+                                   "library_ms": library_ms}}
     return {**extra, "aa": aa, "build_s": build_s, "resolve_s": resolve_s,
             "paths": n_paths, "segments": n_segs, "first_frame_s": first_s,
             "tier": prof["tier"], "launches": {k: v for k, v in
@@ -2118,9 +2209,12 @@ def main():
         bound_ms, bound_by, work = bound(name, kargs,
                                          kfn(*fresh_args(name, kargs), **kw))
         launches = path_launches[path][counter]
-        # torch.cumsum is the one PyTorch call that computes K8's function
+        # torch.cumsum is the one PyTorch call that computes K8's
+        # function; the occlusion walk's plain version is the library chain
+        # (amin, cummax, gather, clamp) that the frame ran before
         library_ms = (cuda_ms(lambda: torch.cumsum(kargs[0], 0), 3)
-                      if counter == "cumsum" else None)
+                      if counter == "cumsum" else plain_ms
+                      if counter == "occlusion_los" else None)
         # in-frame: the frame's launches of this kernel, per launch (K7:
         # the mean of the plan's draws ops; the layered-tier K8 runs in no
         # frame)
@@ -2132,11 +2226,18 @@ def main():
               f"plain_ms {plain_ms:.4f} bound_ms {bound_ms:.4f} "
               f"({bound_by}) library_ms {library_ms} launches {launches} "
               f"({path} frame) shape {tuple(kargs[0].shape)} work {work}")
+        if counter == "occlusion_los":
+            print_walk_shares(name, work)
         results.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": library_ms})
+
+    print("occlusion_los: synced warm ms a frame (phase 3), the layered "
+          "frame bypassing the walk: " + ", ".join(
+              f"{p} {profiles[p]['summary']['warm_ms'][0]:.3f}"
+              for p in ("msaa16", "stroked", "gradient_image", "layered")))
 
     # K8 at the live tier on multiples of 1/16 (every prefix exact), and
     # how far torch.cumsum (f32 on the card) is from the plain version

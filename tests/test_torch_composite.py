@@ -1,7 +1,9 @@
 """K4's plain version (the port's exact sequential src-over) against the
 JAX package's ``fine_composite_solid_cov`` in interpret mode (a log/exp
 chunk composite), at its bar of atol 2e-5, with and without the
-occlusion-advanced walk from the port's ``occlusion_los``."""
+occlusion-advanced walk from the port's ``occlusion_los``; and the plain
+version of the occlusion walk's starts against the JAX package's
+``occlusion_los`` and a reverse walk per tile, on ``occlusion_cases``."""
 
 import numpy as np
 import pytest
@@ -9,11 +11,15 @@ import torch
 
 import jax.numpy as jnp
 
+import occlusion_cases
 from test_torch_pipeline import one_torch_thread  # noqa: F401 (autouse)
 from vello_tpu.ops.pallas_kernels import FINE_CHUNK, NPX
 from vello_tpu.ops.pallas_kernels import fine_composite_solid_cov
+from vello_tpu.pipeline import render as jax_render
 from vello_tpu_torch.ops import kernels
 from vello_tpu_torch.pipeline.render import occlusion_los
+
+OCCLUSION_CASES = occlusion_cases.cases()
 
 
 def _frag_stream(rng, n_frag, n_gtiles, opaque_frac):
@@ -59,3 +65,38 @@ def test_composite_plain_matches_pallas(n_frag, n_gtiles, occlusion):
         full = kernels.composite_solid(tcov, tcol, torch.from_numpy(base),
                                        tstarts[:-1], tstarts[1:])
         np.testing.assert_array_equal(got.numpy(), full.numpy())
+
+
+@pytest.mark.parametrize("case", sorted(OCCLUSION_CASES))
+def test_occlusion_los_plain_matches_jax_and_a_walk(case):
+    """The plain starts equal a reverse walk per tile and the JAX
+    package's cummax (which also masks g_s < n_loc; its gather fails on
+    no fragments), through ``render.occlusion_los`` and the wrapper."""
+    g_s, cov, opaque, n_loc, starts = OCCLUSION_CASES[case]
+    t = [torch.from_numpy(v) for v in (g_s, cov, opaque, starts)]
+    los, his = occlusion_los(t[0], t[1], t[2], n_loc, t[3])
+    kernels.reset_launches()
+    direct = kernels.occlusion_los(t[1], t[2], t[3])
+    assert kernels.launches["occlusion_los"] == 0     # CPU: plain
+    assert los.dtype == direct.dtype == torch.int32
+    np.testing.assert_array_equal(los.numpy(), direct.numpy())
+    np.testing.assert_array_equal(his.numpy(), starts[1:])
+    np.testing.assert_array_equal(
+        los.numpy(), occlusion_cases.walk(cov, opaque, starts))
+    if len(g_s):
+        jlos, jhis = jax_render.occlusion_los(
+            jnp.asarray(g_s), jnp.asarray(cov), jnp.asarray(opaque), n_loc,
+            jnp.asarray(starts))
+        np.testing.assert_array_equal(los.numpy(), np.asarray(jlos))
+        np.testing.assert_array_equal(his.numpy(), np.asarray(jhis))
+
+
+def test_full_cover_threshold_is_torchs():
+    """FULL_COVER_F32, the kernel's threshold, splits the f32 neighbours
+    as torch's ``>= FULL_COVER`` on an f32 tensor does."""
+    thr = np.float32(kernels.FULL_COVER_F32)
+    x = torch.tensor([np.nextafter(thr, np.float32(0)), thr,
+                      np.nextafter(thr, np.float32(2))])
+    assert (x >= kernels.FULL_COVER).tolist() == [False, True, True]
+    assert (x >= kernels.FULL_COVER_F32).tolist() == [False, True, True]
+    assert thr == occlusion_cases.THR

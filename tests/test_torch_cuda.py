@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import occlusion_cases
 import segment_cases
 from vello_tpu_torch import Renderer, RenderParams, resolve
 from vello_tpu_torch.ops import fine, kernels, tiling
@@ -35,7 +36,7 @@ def test_gpu_frame_equals_cpu_frame(cuda, aa):
     counts = dict(kernels.launches)
     coverage = "msaa_coverage" if aa.startswith("msaa") else "coverage_area"
     used = {"segment_prep", "flatten", "expand_touches", coverage,
-            "composite_solid"}
+            "occlusion_los", "composite_solid"}
     assert counts == {k: int(k in used) for k in counts}, counts
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     np.testing.assert_array_equal(gpu, cpu)
@@ -264,7 +265,7 @@ def test_gpu_paint_and_stroke_frames_equal_cpu_frames(cuda, scene,
     counts = dict(kernels.launches)
     coverage = "msaa_coverage" if aa == "msaa16" else "coverage_area"
     used = {"segment_prep", "flatten", "expand_touches", coverage,
-            composite}
+            "occlusion_los", composite}
     assert counts == {k: int(k in used) for k in counts}, counts
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     diff = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
@@ -374,7 +375,86 @@ def test_stroked_frame_makes_no_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert kernels.launches["segment_prep"] == 1
+    assert kernels.launches["occlusion_los"] == 1
     assert int(overflow) == 0 and tuple(img.shape) == (512, 512, 4)
+
+
+OCCLUSION_CASES = occlusion_cases.cases()
+
+
+def mmark_resident_occlusion_inputs(cuda, monkeypatch, seed=3200000099):
+    """The (cov, opaque, starts_g) that the frame of the benchmark's
+    ``mmark.resident`` cell hands the occlusion walk (its configuration
+    and scene generator, colors from ``seed``)."""
+    import json
+    import os
+    import sys
+    import types
+
+    import vello_tpu_torch as vt
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    from benchmark.scenes import mmark_rs
+    with open(os.path.join(root, "benchmark", "configs", "mmark.json")) as f:
+        config = json.load(f)
+    api = types.SimpleNamespace(Scene=vt.Scene, kurbo=vt.kurbo,
+                                peniko=vt.peniko)
+    scene = mmark_rs.build(api, config, seed, {})
+    params = RenderParams(config["width"], config["height"],
+                          tuple(config["base_color"]),
+                          config["antialiasing"])
+    captured = {}
+    original = kernels.occlusion_los
+
+    def wrapped(*args):
+        captured["args"] = args
+        return original(*args)
+
+    monkeypatch.setattr(kernels, "occlusion_los", wrapped)
+    Renderer(device=cuda).render_resolved(resolve(scene.encoding, params),
+                                          params, out="rgba8")
+    monkeypatch.setattr(kernels, "occlusion_los", original)
+    return captured["args"]
+
+
+@pytest.mark.parametrize("case", sorted(OCCLUSION_CASES)
+                         + ["mmark_resident"])
+def test_occlusion_kernel_matches_plain(cuda, monkeypatch, case):
+    """The occlusion walk's starts: the kernel bit-identical to its plain
+    version (amin, cummax, gather and clamp on the card) on
+    ``occlusion_cases``, which the reverse walk also holds, and on the
+    mmark.resident frame's own inputs."""
+    if case == "mmark_resident":
+        cov, opaque, starts = mmark_resident_occlusion_inputs(cuda,
+                                                              monkeypatch)
+    else:
+        _, cov, opaque, _, starts = OCCLUSION_CASES[case]
+        cov, opaque, starts = (torch.from_numpy(v).to(cuda)
+                               for v in (cov, opaque, starts))
+    kernels.reset_launches()
+    got = kernels.occlusion_los(cov, opaque, starts)
+    assert kernels.launches["occlusion_los"] == 1
+    ref = kernels.occlusion_los_plain(cov, opaque, starts)
+    assert got.dtype == ref.dtype == torch.int32
+    assert torch.equal(got, ref)
+    if case != "mmark_resident":
+        np.testing.assert_array_equal(got.cpu().numpy(), occlusion_cases.walk(
+            *(v.cpu().numpy() for v in (cov, opaque, starts))))
+
+
+def test_full_cover_threshold_on_the_card(cuda):
+    """torch on the card compares an f32 tensor against ``>= FULL_COVER``
+    at FULL_COVER_F32, the kernel's threshold: of its f32 neighbours the
+    one below fails, it and the one above pass, in a compare and after an
+    amin."""
+    thr = np.float32(kernels.FULL_COVER_F32)
+    x = torch.tensor([np.nextafter(thr, np.float32(0)), thr,
+                      np.nextafter(thr, np.float32(2))], device=cuda)
+    assert (x >= kernels.FULL_COVER).tolist() == [False, True, True]
+    rows = torch.ones((3, 256), device=cuda)
+    rows[:, 100] = x
+    assert (torch.amin(rows, dim=1) >= kernels.FULL_COVER).tolist() == [
+        False, True, True]
 
 
 def test_over_composite_kernel_matches_plain(cuda):
@@ -714,8 +794,11 @@ def test_gpu_speed_frames_equal_cpu_frames(cuda, scene, composite):
     want = {k: 0 for k in counts}
     want.update(segment_prep=1, flatten=1, expand_touches=1,
                 msaa_coverage=1)
-    want[composite] = (layered.nonempty_draws(layered.build_layer_plan(rs)[1])
-                       if r.last_profile["layered"] else 1)
+    if r.last_profile["layered"]:
+        want[composite] = layered.nonempty_draws(
+            layered.build_layer_plan(rs)[1])
+    else:
+        want.update({composite: 1, "occlusion_los": 1})
     assert counts == want, counts
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     diff = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
@@ -738,7 +821,8 @@ def test_gpu_unfused_frames_equal_cpu_frames(cuda, monkeypatch, scene, aa):
     gpu = Renderer(device=cuda).render_resolved(rs, params, out="rgba8")
     counts = dict(kernels.launches)
     coverage = "msaa_coverage" if aa == "msaa16" else "coverage_area"
-    used = {"expand_touches", coverage, "composite_solid"}
+    used = {"expand_touches", coverage, "occlusion_los",
+            "composite_solid"}
     assert counts == {k: int(k in used) for k in counts}, counts
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     np.testing.assert_array_equal(gpu, cpu)
@@ -762,7 +846,7 @@ def test_gpu_supersampled_frame_equals_cpu_frame(cuda, monkeypatch):
     gpu = r.render(scene, params)
     counts = dict(kernels.launches)
     used = {"segment_prep", "flatten", "expand_touches", "coverage_area",
-            "composite_solid"}
+            "occlusion_los", "composite_solid"}
     assert counts == {k: int(k in used) for k in counts}, counts
     assert r.last_profile["retries"] == 0
     img, overflow = r.frame_thunk()()
@@ -788,7 +872,7 @@ def test_bench_headline_on_the_card(cuda):
     head = bench.headline(cfg, cuda)
     assert head.launches == {"segment_prep": 1, "flatten": 1,
                              "expand_touches": 1, "msaa_coverage": 1,
-                             "composite_solid": 1}
+                             "occlusion_los": 1, "composite_solid": 1}
     assert head.frame_ms > 0 and not hasattr(head, "device_ms")
     want = Renderer(device=cuda).render_u8(filled_mmark(4, 256.0),
                                            head.params)
@@ -814,7 +898,7 @@ def test_gpu_text_frames_equal_cpu_frames(cuda, scene, composite, aa):
     counts = dict(kernels.launches)
     coverage = "msaa_coverage" if aa == "msaa16" else "coverage_area"
     used = {"segment_prep", "flatten", "expand_touches", coverage,
-            composite}
+            "occlusion_los", composite}
     assert counts == {k: int(k in used) for k in counts}, counts
     cpu = Renderer(device="cpu").render_resolved(rs, params, out="rgba8")
     diff = np.abs(gpu.astype(np.int16) - cpu.astype(np.int16))
@@ -851,7 +935,7 @@ def test_gpu_color_glyph_frames_equal_cpu_frames(cuda, kind):
             layered.build_layer_plan(rs)[1])
         assert want["composite_over"] > 1
     else:
-        want["composite_src"] = 1
+        want.update(composite_src=1, occlusion_los=1)
     kernels.reset_launches()
     r = Renderer(device=cuda)
     gpu = r.render_resolved(rs, params, out="rgba8")

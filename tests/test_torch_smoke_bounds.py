@@ -4,7 +4,7 @@ segment, mini) pairs, K2's live touches and the lines they fall in, the
 input bytes K1 and K2 read (the owners' columns and scan entries), K5's
 crossed tile rows and K3's crossed sample rows (the sample rows at
 y + (s + 0.5) / ns of every tile row y), and the bytes the segment
-preparation reads and writes."""
+preparation and the occlusion walk read and write."""
 
 import os
 import sys
@@ -247,3 +247,34 @@ def test_segment_prep_bound_reads_each_input_once(stroked):
     assert work["bytes"] == s * per_seg + 4 + 24 * p + s * (4 * cols + 4)
     assert ms == pytest.approx(work["bytes"] / chip_smoke.HBM_BYTES_PER_S
                                * 1e3)
+
+
+@pytest.mark.parametrize("case", ["no_fragments", "empty_tiles",
+                                  "window_covers", "stripe_tail", "random"])
+def test_occlusion_bound_reads_the_walked_opaque_rows(case):
+    """The occlusion walk's bound: bytes alone, of the opaque rows of each
+    [los, his) the cover's whole row and one 32-byte sector of each other
+    (a value below the threshold settles it), the opaque flags of those
+    ranges and the ranges read, los written; its tiles with a cover and
+    rows below a cover, against a brute force per tile."""
+    import occlusion_cases
+    _, cov, opaque, _, starts = occlusion_cases.cases()[case]
+    los = occlusion_cases.walk(cov, opaque, starts)
+    rows = flags = covers = hidden = 0
+    for t in range(len(starts) - 1):
+        lo, hi, j = int(starts[t]), int(starts[t + 1]), int(los[t])
+        rows += int(opaque[j:hi].sum())
+        flags += hi - j
+        hidden += j - lo
+        covers += int(hi > lo and opaque[j]
+                      and bool(np.all(cov[j] >= occlusion_cases.THR)))
+    args = tuple(torch.from_numpy(v) for v in (cov, opaque, starts))
+    _, by, work = chip_smoke.bound("occlusion_los", args,
+                                   torch.from_numpy(los))
+    assert by == "bytes" and work["ops"] == 0
+    assert work["walked_rows"] == rows
+    assert work["tiles_with_cover"] == covers
+    assert work["hidden_rows"] == hidden
+    assert work["live_rows"] == int(starts[-1] - starts[0])
+    assert work["bytes"] == (covers * 1024 + (rows - covers) * 32 + flags
+                             + 4 * len(starts) + 4 * len(los))

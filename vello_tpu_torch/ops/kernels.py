@@ -20,7 +20,9 @@ plain PyTorch version (counterpart of ``vello_tpu/ops/pallas_kernels.py``).
 - K8 column cumsum: ``cumsum0`` (``csrc/cumsum.cu``), plain
   ``cumsum0_plain``;
 - the fused geometry's segment preparation, before K1: ``segment_prep``
-  (``csrc/segment_prep.cu``), plain ``segment_prep_plain``.
+  (``csrc/segment_prep.cu``), plain ``segment_prep_plain``;
+- the occlusion walk's starts, before K4 and K6: ``occlusion_los``
+  (``csrc/composite_solid.cu``), plain ``occlusion_los_plain``.
 
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches the kernel on the current stream or raises; there is no other
@@ -117,7 +119,8 @@ launches = {"flatten": 0, "expand_touches": 0, "msaa_coverage": 0,
             "composite_solid": 0, "coverage_area": 0,
             "coverage_area_raw": 0, "composite_src": 0,
             "composite_src_bf16": 0, "composite_over": 0,
-            "composite_over_bf16": 0, "cumsum": 0, "segment_prep": 0}
+            "composite_over_bf16": 0, "cumsum": 0, "segment_prep": 0,
+            "occlusion_los": 0}
 
 _lib = None
 
@@ -204,6 +207,7 @@ def _load():
                 "vt_segment_prep": [P, P, P, P, P, P, P, P, P, P, I, P, P,
                                     I, I, F, F, F, P, P, P],
                 "vt_segment_offsets": [P, P, P, I, I, P],
+                "vt_occlusion_los": [P, P, P, I, F, P, P],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)
@@ -813,3 +817,57 @@ def segment_prep_plain(seg_pts, seg_kind, seg_path, n_segs, rects,
         offs.to(torch.float32)[:, None],
         rpack[pclip]] + srows, dim=1).contiguous()          # (S, 16 | 21)
     return spack, incl
+
+
+# --------------------------------------------------------------------------
+# The occlusion walk's starts (no TPU kernel: the JAX package's XLA runs a
+# cummax over every fragment)
+
+# a fragment fully covers its tile where all its coverage values are >=
+# FULL_COVER; torch compares an f32 tensor against the scalar rounded to
+# f32, FULL_COVER_F32 (1 - 17 * 2**-24), which the kernel takes
+FULL_COVER = 1.0 - 1e-6
+FULL_COVER_F32 = float(np.float32(FULL_COVER))
+
+
+def occlusion_los(cov, opaque, starts_g):
+    """Each tile's composite-walk start: the LAST fragment of [starts_g[t],
+    starts_g[t + 1]) that is ``opaque`` and fully covers the tile (see
+    ``occlusion_los_plain``), else starts_g[t]. cov (F, 256) f32 coverage
+    rows, opaque (F,) bool, starts_g (G + 1,) i32 nondecreasing -> los
+    (G,) i32. On the card one launch, which reads only opaque rows of the
+    tiles' ranges, from the top down to the window of the last full one."""
+    if _on_cpu(cov, opaque, starts_g):
+        return occlusion_los_plain(cov, opaque, starts_g)
+    if starts_g.dim() != 1 or starts_g.shape[0] < 1:
+        raise ValueError(f"starts_g: shape {tuple(starts_g.shape)}, "
+                         f"expected (G + 1,)")
+    f = cov.shape[0]
+    g = starts_g.shape[0] - 1
+    _check(cov, "cov", torch.float32, (f, NPX))
+    _check(opaque, "opaque", torch.bool, (f,))
+    _check(starts_g, "starts_g", torch.int32, (g + 1,))
+    if cov.data_ptr() % 16:
+        raise ValueError("cov must start on a 16-byte boundary")
+    los = torch.empty(g, dtype=torch.int32, device=cov.device)
+    if g:
+        _launch("occlusion_los", _load().vt_occlusion_los, cov, opaque,
+                starts_g, g, FULL_COVER_F32, los)
+    return los
+
+
+def occlusion_los_plain(cov, opaque, starts_g):
+    """Plain version of the occlusion walk's starts: a running max of the
+    index of each opaque fragment whose least coverage value is >=
+    FULL_COVER (a NaN is not), read at each tile's last fragment and
+    clamped into the tile (a max reaching back into an earlier tile
+    clamps to the tile's start; an empty tile starts at its start)."""
+    lo0, hi0 = starts_g[:-1], starts_g[1:]
+    if cov.shape[0] == 0:
+        return lo0.clone()
+    full = torch.amin(cov, dim=1) >= FULL_COVER
+    idx = torch.arange(cov.shape[0], dtype=torch.int32, device=cov.device)
+    m = torch.cummax(torch.where(opaque & full, idx, -1), 0).values
+    cover = m[(hi0 - 1).clamp_min(0).long()]
+    return torch.where(hi0 > lo0,
+                       torch.minimum(torch.maximum(cover, lo0), hi0), lo0)

@@ -11,11 +11,11 @@ Stage order:
   and row prefix -> [area/centers: area coverage of every fragment (K5)]
   -> live cull and (gtile, path) sort -> [msaa: msaa coverage of the live
   sorted fragments (K3)] -> [non-solid paints: paint evaluation times
-  coverage into src rows] -> occlusion walk starts -> solid composite (K4)
-  or src composite (K6) -> image.
+  coverage into src rows] -> occlusion walk starts (one kernel beside K4)
+  -> solid composite (K4) or src composite (K6) -> image.
 
 Everything between the kernels is library PyTorch (sort, searchsorted,
-cumsum, cummax, index). Shapes are static per capacity tier and nothing
+cumsum, index). Shapes are static per capacity tier and nothing
 reads back to the host inside a frame: the overflow word is the one value
 the caller reads, at the end.
 
@@ -425,17 +425,15 @@ def prepare_fragments(bufs: dict, static: PipelineStatic,
 
 def occlusion_los(g_s, coverage_s, opaque, n_loc: int, starts_g):
     """Advance each tile's composite-walk start to its LAST fragment that
-    is opaque and fully covers the tile: everything below it is hidden.
-    Returns (los, his) i32."""
-    full = torch.amin(coverage_s, dim=1) >= 1.0 - 1e-6
-    cond = opaque & full & (g_s < n_loc)
-    idx = torch.arange(g_s.shape[0], dtype=torch.int32, device=g_s.device)
-    m = torch.cummax(torch.where(cond, idx, -1), 0).values
-    lo0, hi0 = starts_g[:-1], starts_g[1:]
-    cover = m[(hi0 - 1).clamp_min(0).long()]
-    los = torch.where(hi0 > lo0,
-                      torch.minimum(torch.maximum(cover, lo0), hi0), lo0)
-    return los, hi0
+    is opaque and fully covers the tile: everything below it is hidden
+    (``kernels.occlusion_los``). starts_g (n_loc + 1,) are the tiles'
+    ranges in the sorted ``g_s``, so every fragment in tile t's range has
+    g_s == t < n_loc, and the rows past starts_g[n_loc] (g_s >= n_loc:
+    culled, or outside a stripe) are never read. Returns (los, his) i32."""
+    if starts_g.shape[0] != n_loc + 1:
+        raise ValueError(f"starts_g: {starts_g.shape[0]} entries for "
+                         f"{n_loc} tiles")
+    return kernels.occlusion_los(coverage_s, opaque, starts_g), starts_g[1:]
 
 
 def tiles_to_image(tiles, width: int, height: int, u8_out: bool = False,
