@@ -60,8 +60,12 @@ Phases (any failure exits non-zero):
      render_u8 bytes equal to utils.png.to_rgba8 of its f32 frame;
   4. each kernel against its plain PyTorch version on the inputs of the
      path named for it in KERNELS (K1 twice: on the fill rows of the msaa16
-     frame and on the stroke rows of the stroked frame; K2 and K3 twice: on
-     the msaa16 and the stroked frame's inputs; K7 on the layered
+     frame and on the stroke rows of the stroked frame; K2 twice: on the
+     msaa16 and the stroked frame's inputs; K3 three times: on those two
+     and, as msaa_coverage_mmark, on the benchmark cell mmark.resident's
+     (benchmark/scenes/mmark_rs.py's scene at its configuration, 1600x900
+     msaa16, one frame), each with the rows that take each of its paths
+     (msaa_row_paths); K7 on the layered
      frame's largest draws op, a clone of its buffer for each run, since
      it works in place; the bf16 instantiations of K6 on the
      gradient_image_speed frame's inputs and of K7 on the layered_speed
@@ -249,6 +253,13 @@ KERNELS = {
                               "vello_tpu_torch/csrc/msaa_coverage.cu",
                               "vello_tpu/ops/pallas_kernels.py:349",
                               "stroked"),
+    # the benchmark cell's inputs (capture_cell_msaa); held beside the
+    # stroked path's, whose launches it shares
+    "msaa_coverage_mmark": ("msaa_coverage", "msaa_coverage",
+                            "msaa_coverage_plain",
+                            "vello_tpu_torch/csrc/msaa_coverage.cu",
+                            "vello_tpu/ops/pallas_kernels.py:349",
+                            "stroked"),
     "composite_solid": ("composite_solid", "composite_solid",
                         "composite_solid_plain",
                         "vello_tpu_torch/csrc/composite_solid.cu",
@@ -807,6 +818,54 @@ def crossed_samples(trow, starts, fidx, valid, ns) -> int:
     return int(n.clamp_min(0).sum())
 
 
+def msaa_row_paths(starts, fidx, backdrop, rule, valid, has_evenodd=True):
+    """The rows of a K3 call by the path the kernel takes for them
+    (csrc/msaa_coverage.cu): without touches (or invalid), and of a
+    touched row by its backdrop and count n: even-odd (one bit plane), 4,
+    6, 8 or 16 planes as 2 n + |backdrop| is below 16, 64, 256 or 2^16,
+    else (or for a backdrop that is not an integer) the generic path."""
+    f = fidx.long()
+    cnt = ((starts[f + 1] - starts[f]) * valid[f]).long()
+    bd = backdrop[f]
+    integral = (bd == torch.round(bd)) & (bd.abs() < 65536.0)
+    need = 2 * cnt + torch.where(integral, bd.abs(), 0.0).long()
+    touched = cnt > 0
+    planes = touched & integral & (need < 65536)
+    evenodd = planes & (rule[f] == 1) & bool(has_evenodd)
+    nonzero = planes & ~evenodd
+    paths = {"untouched": int((~touched).sum()),
+             "evenodd": int(evenodd.sum())}
+    lo = 0
+    for k in (4, 6, 8, 16):
+        paths[f"planes{k}"] = int((nonzero & (need >= lo)
+                                   & (need < 2 ** k)).sum())
+        lo = 2 ** k
+    paths["generic"] = int((touched & ~planes).sum())
+    return paths
+
+
+def capture_cell_msaa(kernels, Renderer, RenderParams):
+    """The arguments of K3's call in one frame of the benchmark cell
+    mmark.resident: its configuration's scene (benchmark/scenes/mmark_rs.py,
+    geometry_seed 1) at its size and antialiasing, colors from one run
+    seed (they change no K3 input)."""
+    import types
+    import vello_tpu_torch as vt
+    from benchmark.scenes import mmark_rs
+    with open(os.path.join(REPO, "benchmark", "configs", "mmark.json")) as f:
+        config = json.load(f)
+    api = types.SimpleNamespace(Scene=vt.Scene, kurbo=vt.kurbo,
+                                peniko=vt.peniko)
+    scene = mmark_rs.build(api, config, 3200000263, {})
+    params = RenderParams(int(config["width"]), int(config["height"]),
+                          tuple(config["base_color"]),
+                          config["antialiasing"])
+    r = Renderer(device="cuda")
+    r.render(scene, params)
+    return capture_calls(kernels, r.frame_thunk(), ["msaa_coverage"])[
+        "msaa_coverage"]
+
+
 def _live_slots(incl, n_slots):
     """Per owner of an inclusive count scan, its slots below the live
     total min(incl[-1], n_slots)."""
@@ -922,9 +981,11 @@ def bound(name, args, out):
         trow, starts, fidx, backdrop, rule, valid, ns = args[:7]
         f = fidx.long()
         cnt = (starts[f + 1] - starts[f]) * valid[f]
-        units = {"touches": int(cnt.sum()),
+        units = {"rows": int(f.shape[0]), "touches": int(cnt.sum()),
                  "crossings": crossed_samples(trow, starts, fidx, valid, ns),
-                 "touched_rows": int((cnt > 0).sum())}
+                 "touched_rows": int((cnt > 0).sum()),
+                 "row_paths": msaa_row_paths(starts, fidx, backdrop, rule,
+                                             valid, *args[7:8])}
         ops = (units["touches"] * (OPS_MSAA_TOUCH
                                    + 16 * ns * OPS_MSAA_SAMPLE_ROW)
                + units["crossings"] * OPS_MSAA_CROSSING
@@ -2143,6 +2204,8 @@ def main():
         for name, spec in KERNELS.items():
             if spec[5] == path:
                 captured[name] = calls[spec[1]]
+    captured["msaa_coverage_mmark"] = capture_cell_msaa(kernels, Renderer,
+                                                        RenderParams)
     if captured["flatten_stroke_rows"][0][0].shape[1] != 21:
         fail("the stroked frame gave K1 no stroke rows")
     if (captured["segment_prep_stroked"][0][5] is None
@@ -2190,9 +2253,10 @@ def main():
                       if counter == "cumsum" else plain_ms
                       if counter == "occlusion_los" else None)
         # in-frame: the frame's launches of this kernel, per launch (K7:
-        # the mean of the plan's draws ops; the layered-tier K8 runs in no
-        # frame)
-        frame_ms = (None if name == "cumsum_layered_tier"
+        # the mean of the plan's draws ops; the layered-tier K8 and the
+        # benchmark cell's K3 run in no frame of phase 3)
+        frame_ms = (None if name in ("cumsum_layered_tier",
+                                     "msaa_coverage_mmark")
                     else in_frame[path][counter])
         print(f"{name}: max_abs_err {err} kernel_ms {ms:.4f} profiled_ms "
               f"{kernel_prof_ms} (the trace kept {kept} of {launched} "

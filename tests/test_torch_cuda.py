@@ -208,6 +208,95 @@ def test_msaa_kernel_on_thresholds(cuda, ns, has_evenodd):
     assert empty.shape == (0, 256) and kernels.launches["msaa_coverage"] == 1
 
 
+# a row's touch counts around K3's bounds: the warp's 32 lanes (one
+# staged chunk), and the windings that 4, 6, 8 and 16 bit planes hold
+# (2 n + |backdrop| below 16, 64, 256, 2^16)
+MSAA_ROW_TOUCHES = (0, 1, 4, 31, 32, 33, 127, 128, 129, 300)
+
+
+def msaa_rows(ns: int, n: int, seed: int):
+    """Fragments of n touches each, for every backdrop from -9 to 9 and
+    both fill rules: random touches in and around the tile, or (every
+    other fragment) coherent ones that cross every sample row with one
+    sign and carry left-edge terms of one sign, so that the windings reach
+    about 2 n; then fragments with dyadic fractional backdrops and one
+    with an integral backdrop of 2^16 + 1 (K3's generic path), invalid
+    fragments with touches, and fragments without touches for every
+    backdrop. Returns numpy (trow, starts, backdrop, rule, valid)."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    offs = fine.sample_offsets(ns)
+
+    def random_touch():
+        seg = rng.uniform(-1, 17, 4).astype(f32)
+        if rng.uniform() < 0.3:         # an end on a sample row
+            s = int(rng.integers(ns))
+            seg[1] = f32(int(rng.integers(16)) + offs[s][1])
+        if rng.uniform() < 0.15:        # vertical
+            seg[2] = seg[0]
+        ye = (rng.choice([f32(rng.uniform(0, 16)), seg[1], f32(-3)])
+              if rng.uniform() < 0.3 else f32(1e9))
+        return list(seg) + [ye]
+
+    def coherent_touch():
+        x = f32(rng.uniform(-1, 17))
+        return [x, f32(-1), f32(x + rng.uniform(0.01, 2)), f32(17),
+                f32(rng.uniform(-1, 16)) if rng.uniform() < 0.5
+                else f32(1e9)]
+
+    counts, bds, rules, valid, rows = [], [], [], [], []
+
+    def fragment(c, bd, rule, ok=True, coherent=False):
+        counts.append(c)
+        bds.append(bd)
+        rules.append(rule)
+        valid.append(ok)
+        for _ in range(c):
+            rows.append((coherent_touch if coherent else random_touch)()
+                        + [0.0, 0.0, 0.0])
+
+    k = 0
+    for bd in range(-9, 10):
+        for rule in (0, 1):
+            fragment(n, bd, rule, coherent=k % 2 == 1)
+            k += 1
+    for bd in (0.5, -1.5, 0.25, 65537.0):
+        for rule in (0, 1):
+            fragment(n, bd, rule, coherent=bd < 0)
+    for bd in (0, 1, -2):
+        fragment(n, bd, 0, ok=False)
+    for bd in range(-9, 10):
+        fragment(0, bd, int(bd % 2))
+    trow = np.asarray(rows, dtype=f32).reshape(-1, 8)
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return (trow, starts, np.asarray(bds, f32),
+            np.asarray(rules, np.int32), np.asarray(valid, bool))
+
+
+@pytest.mark.parametrize("n", MSAA_ROW_TOUCHES)
+@pytest.mark.parametrize("ns", [8, 16])
+def test_msaa_kernel_on_touch_counts(cuda, ns, n):
+    """K3 bit-equal to its plain version for rows of n touches: every
+    backdrop from -9 to 9, fractional and large backdrops, nonzero and
+    even-odd rules (and has_evenodd off), invalid rows and rows without
+    touches, the rows in shuffled order of odd length, some twice."""
+    trow, starts, bd, rule, valid = msaa_rows(ns, n, 100 * ns + n)
+    rng = np.random.default_rng(n)
+    fidx = rng.permutation(len(bd))
+    fidx = np.concatenate([fidx, fidx[:5]])
+    fidx = fidx[:len(fidx) - 1 + len(fidx) % 2]
+    assert len(fidx) % 2 == 1
+    args = [torch.from_numpy(v).to(cuda) for v in (
+        trow, starts, fidx.astype(np.int32), bd, rule, valid)]
+    for has_evenodd in (True, False):
+        got = kernels.msaa_coverage(*args, ns=ns, has_evenodd=has_evenodd)
+        ref = fine.msaa_coverage_plain(*args, ns=ns,
+                                       has_evenodd=has_evenodd)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+        # partly covered pixels: not a row of constants
+        assert n == 0 or bool(((got > 0) & (got < 1)).any())
+
+
 @pytest.mark.parametrize("centers", [False, True])
 def test_area_kernel_on_thresholds(cuda, centers):
     """K5 equal to its plain version on the same touches (rows that the

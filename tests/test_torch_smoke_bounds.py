@@ -3,8 +3,8 @@ counts on small inputs: K1's live fill slots, stroke slots and (stroked
 segment, mini) pairs, K2's live touches and the lines they fall in, the
 input bytes K1 and K2 read (the owners' columns and scan entries), K5's
 crossed tile rows and K3's crossed sample rows (the sample rows at
-y + (s + 0.5) / ns of every tile row y), and the bytes the segment
-preparation and the occlusion walk read and write."""
+y + (s + 0.5) / ns of every tile row y) and its rows by path, and the
+bytes the segment preparation and the occlusion walk read and write."""
 
 import os
 import sys
@@ -151,6 +151,53 @@ def test_crossed_samples_equal_a_brute_force_count(ns):
     got = chip_smoke.crossed_samples(*(torch.from_numpy(v) for v in
                                        (trow, starts, fidx, valid)), ns)
     assert got == want
+
+
+@pytest.mark.parametrize("has_evenodd", [False, True])
+def test_msaa_row_paths_equal_a_brute_force_count(has_evenodd):
+    """K3's rows by path: untouched or invalid; then by the backdrop and
+    the count n of a touched row, the generic path for a backdrop that is
+    not an integer below 2^16 or for 2 n + |backdrop| from 2^16 on, else
+    even-odd (one plane) or the least of 4, 6, 8 and 16 planes whose range
+    holds 2 n + |backdrop|."""
+    rng = np.random.default_rng(5)
+    f = 400
+    counts = rng.integers(0, 140, f)
+    counts[rng.uniform(size=f) < 0.2] = 0
+    counts[:4] = (7, 8, 31, 32)                 # 2 n around 16 and 64
+    counts[4], counts[5] = 40000, 32767         # around 2^16 touches
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    bd = rng.integers(-9, 10, f).astype(np.float32)
+    bd[:4] = (1, 0, 1, 0)
+    bd[5] = 2.0
+    bd[6:12] = (0.5, -1.25, 65536.0, 65535.0, -65536.0, np.nan)
+    rule = rng.integers(0, 2, f).astype(np.int32)
+    valid = rng.uniform(size=f) < 0.9
+    fidx = rng.permutation(f)[:333].astype(np.int32)
+    want = {"untouched": 0, "evenodd": 0, "planes4": 0, "planes6": 0,
+            "planes8": 0, "planes16": 0, "generic": 0}
+    for fr in fidx:
+        n = int(counts[fr]) if valid[fr] else 0
+        b = float(bd[fr])
+        if n == 0:
+            want["untouched"] += 1
+        elif not (b == np.round(b) and abs(b) < 65536):
+            want["generic"] += 1
+        elif 2 * n + abs(int(b)) >= 65536:
+            want["generic"] += 1
+        elif has_evenodd and rule[fr] == 1:
+            want["evenodd"] += 1
+        else:
+            need = 2 * n + abs(int(b))
+            k = next(k for k in (4, 6, 8, 16) if need < 2 ** k)
+            want[f"planes{k}"] += 1
+    got = chip_smoke.msaa_row_paths(
+        *(torch.from_numpy(v) for v in (starts, fidx, bd, rule, valid)),
+        has_evenodd)
+    assert got == want
+    assert sum(got.values()) == len(fidx)
+    assert all(v > 0 for k, v in got.items()
+               if has_evenodd or k != "evenodd")
 
 
 def test_corpus_phase_holds_the_golden_tests_scenes_and_bars():
